@@ -9,13 +9,17 @@ script exits non-zero without the final line:
 1. device  — requires a CUDA card; prints its name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them.
-2. build   — compiles the three hand-written kernels from
-   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (in parallel).
+2. build   — compiles the hand-written kernels from
+   ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
+   source, in parallel).
 3. kernels — runs each kernel (K1 conj_phase_scale, K2 phase_tf_apply,
-   K3 intensity_readout) and its plain PyTorch version on the card on the
-   serving path's shapes (32x200x200 with a shared plane, a P=5 stack)
-   and an odd 37x53 shape; holds each to max|kernel - plain| <= 1e-5 *
-   max|plain| and times both with CUDA events.
+   K3 intensity_readout, K4 phase_apply) and its plain PyTorch version on
+   the card on the main path's shapes (32x200x200 with a shared plane, a
+   P=5 stack) and an odd 37x53 shape; holds each to max|kernel - plain|
+   <= 1e-5 * max|plain| and times both with CUDA events.  Then holds the
+   backward of each autograd Function (_PhaseTFApply, _FusedHop,
+   _Readout, _PhaseApply) at 32x200x200 against autograd through the
+   plain versions on the card, to the same tolerance.
 4. slice   — builds ``donn-mnist-5l`` (n=200, depth 5, qat 256 levels,
    use_pallas) on the card from a seeded generator, freezes it with f32,
    bf16 and int8 planes (and f32 with the rfft first hop), serves 32
@@ -24,14 +28,27 @@ script exits non-zero without the final line:
    holds the logits against the same deployment on CPU copies (plain
    versions) and reports req/s and per-batch p50/p99 at bucket 32, each
    row served for WINDOW_S seconds, REPEATS times, rows interleaved.
-5. cli     — runs ``repro_torch.launch.serve_donn.main`` once at the
+5. train   — ``donn-mnist-5l`` training at full width on both engines
+   (scan: K1/K2/K3 with K2 in the backward; eager: K4 forward and
+   backward, K3): the loss and every layer's d/dphase on the card against
+   a CPU copy (plain versions) and eager against scan, both to 1e-4 of
+   the max; the launches of TRAIN_STEPS counted optimizer steps on each
+   engine against the per-step formula; ``train_classifier`` for 40
+   steps with a falling loss (gamma calibrated first, as the reference's
+   quickstart does); optimizer steps/s at batch 32 for three
+   rows (scan + kernels, eager + K4, plain torch), each a closed loop of
+   WINDOW_S seconds, REPEATS times, rows interleaved; then
+   ``serve_donn --train-steps 16`` at the config's width.
+6. cli     — runs ``repro_torch.launch.serve_donn.main`` once at the
    config's width.
 
-Then one JSON line lists every kernel with its launches on the serving
-path, error and times, and the last line is the device record.
-``--profile FILE`` adds a ``torch.profiler`` table of PROFILE_BATCHES
-bucket-32 batches with the device's busy time and idle share per batch,
-printed and written to FILE.
+Then one JSON line lists every kernel with its launches on the counted
+main-path windows (serving + training), its launches per training step on
+each engine, error and times, and the last line is the device record.
+``--profile FILE`` adds ``torch.profiler`` tables of PROFILE_BATCHES
+bucket-32 batches and of PROFILE_CHUNKS 8-step training chunks, with the
+device's busy time and idle share, printed and written to FILE (the
+training table to FILE.train).
 """
 from __future__ import annotations
 
@@ -52,11 +69,18 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.models import build_model  # noqa: E402
+from repro_torch.core.regularization import calibrate_gamma  # noqa: E402
+from repro_torch.core.train_utils import (  # noqa: E402
+    loss_and_grads, make_train_chunk, make_train_step, train_classifier,
+)
+from repro_torch.data.synthetic import batch_iterator, synth_digits  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve_donn  # noqa: E402
+from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.runtime.inference import (  # noqa: E402
     InferenceEngine, MicroBatcher, freeze,
 )
+from repro_torch.tree import tree_map  # noqa: E402
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor
 # cores (dense, at the 700 W limit) — the bound every kernel time sits
@@ -65,9 +89,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 KERNEL_RTOL = 1e-5  # max|kernel - plain| / max|plain|
 SLICE_RTOL = 1e-4  # logits on the card vs the CPU copy (cuFFT vs pocketfft)
-WINDOW_S = 3.0  # seconds of closed-loop serving per row and repeat
+WINDOW_S = 3.0  # seconds of closed-loop serving/training per row, repeat
 REPEATS = 2
 PROFILE_BATCHES = 100
+PROFILE_CHUNKS = 5
+TRAIN_STEPS = 3  # counted optimizer steps per engine
+CHUNK = 8  # optimizer steps per make_train_chunk call (steps_per_call)
+GAMMA = 1.12  # donn-mnist-5l's gamma, K4's scalar
+SERVING_KERNELS = ("conj_phase_scale", "phase_tf_apply", "intensity_readout")
 
 KERNEL_META = {
     "conj_phase_scale": ("src/repro_torch/kernels/csrc/spectral_hop.cu",
@@ -76,7 +105,28 @@ KERNEL_META = {
                        "src/repro/kernels/complex_mul.py:91"),
     "intensity_readout": ("src/repro_torch/kernels/csrc/intensity_readout.cu",
                           "src/repro/kernels/intensity_readout.py:33"),
+    "phase_apply": ("src/repro_torch/kernels/csrc/complex_mul.cu",
+                    "src/repro/kernels/complex_mul.py:60"),
 }
+
+
+def train_launches_per_step(depth: int) -> dict:
+    """Kernel launches of one optimizer step of a depth-L DONN.
+
+    scan: K1 twice per fused layer (forward only); K2 once for the final
+    hop's TF multiply, once in its backward, and twice in each fused
+    layer's backward except layer 0's, whose input needs no gradient; K3
+    once (its backward is a matmul).  eager: K4 once per layer forward and
+    once per layer backward except layer 0's; K3 once.
+    """
+    zero = dict.fromkeys(ops.KERNELS, 0)
+    return {
+        "scan": {**zero, "conj_phase_scale": 2 * depth,
+                 "phase_tf_apply": 2 + 2 * (depth - 1),
+                 "intensity_readout": 1},
+        "eager": {**zero, "phase_apply": 2 * depth - 1,
+                  "intensity_readout": 1},
+    }
 
 
 def phase_device() -> str:
@@ -228,6 +278,27 @@ def phase_kernels(dev) -> dict:
         flops=B * n * n * (3 + 2 * C), library_ms=device_ms(lib))
     print(f"[kernels] intensity_readout library einsum (timed only, not "
           f"the port): max_abs_err {lib_err:.3e} rel {lib_rel:.3e} vs plain")
+
+    # K4: one shared phase plane, gamma a host float
+    errs = []
+    for case, shape in (("32x200x200 shared plane", (B, n, n)),
+                        ("odd 37x53", (6, 37, 53))):
+        u = _cfield(shape, gen, dev)
+        phi = ((torch.rand(shape[1:], generator=gen) * 4 - 2)
+               * math.pi).to(dev)
+        errs.append(_compare("phase_apply", case,
+                             ops.phase_apply_rows(u, phi, GAMMA),
+                             ref.phase_apply_ref(u, phi, GAMMA)))
+    us = [_cfield((B, n, n), gen, dev) for _ in range(8)]
+    phi = (torch.rand((n, n), generator=gen) * 2 * math.pi).to(dev)
+    it = iter(range(10 ** 9))
+    kern = lambda: ops.phase_apply_rows(us[next(it) % 8], phi, GAMMA)  # noqa: E731
+    plain = lambda: ref.phase_apply_ref(us[next(it) % 8], phi, GAMMA)  # noqa: E731
+    rows["phase_apply"] = dict(
+        max_abs_err=max(errs), ms=device_ms(kern), plain_ms=device_ms(plain),
+        nbytes=B * n * n * 16 + n * n * 4,
+        flops=B * n * n * 6 + n * n * 4,  # rotation; sincos + 2 per pixel
+        library_ms=None)
     for k, r in rows.items():
         t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / F32_FLOP_PER_S * 1e3
@@ -240,6 +311,76 @@ def phase_kernels(dev) -> dict:
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: "
               f"{r['nbytes'] / 1e6:.2f} MB)")
     return rows
+
+
+def _compare_grads(what: str, got, want, rtol: float) -> float:
+    """max|got - want| / max|want| over a list of gradients; raises above
+    ``rtol``."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.detach().cpu(), w.detach().cpu()
+        if g.shape != w.shape or not torch.isfinite(
+                torch.view_as_real(g) if g.is_complex() else g).all():
+            raise AssertionError(f"{what}: bad gradient {i} {tuple(g.shape)}")
+        rel = ((g - w).abs().max() / w.abs().max()).item()
+        worst = max(worst, rel)
+    print(f"{what}: max rel err {worst:.3e} (tol {rtol:g})")
+    if not worst <= rtol:
+        raise AssertionError(f"{what}: {worst:.3e} > {rtol:g}")
+    return worst
+
+
+def phase_backward(dev) -> None:
+    """Each autograd Function's backward on the card against autograd
+    through its plain version on the card (32x200x200, shared planes)."""
+    gen = torch.Generator().manual_seed(4321)
+    B, n = 32, 200
+    x = _cfield((B, n, n), gen, dev)
+    w = _cfield((B, n, n), gen, dev)
+    th_h = ((torch.rand((n, n), generator=gen) * 2 - 1) * math.pi).to(dev)
+    amp_h = torch.rand((n, n), generator=gen).to(dev)
+    th = (torch.rand((n, n), generator=gen) * 2 * math.pi).to(dev)
+    amp = torch.full((n, n), GAMMA, device=dev)
+    masks = torch.rand((10, n, n), generator=gen).to(dev)
+    g = torch.rand((B, 10), generator=gen).to(dev)
+
+    def project(out):
+        return (w.real * out.real + w.imag * out.imag).sum()
+
+    def plain_hop(a, t):
+        s1 = ref.conj_phase_scale_ref(torch.fft.fft2(a), th_h[None],
+                                      amp_h[None], B, -1.0, 1.0)
+        return ref.conj_phase_scale_ref(torch.fft.fft2(s1), t[None],
+                                        amp[None], B, 1.0, 1.0 / (n * n))
+
+    cases = {
+        "_PhaseTFApply": (
+            lambda a, t: project(ops.phase_tf_apply(a, t, amp)),
+            lambda a, t: project(ref.phase_tf_apply_ref(a, t[None],
+                                                        amp[None], B))),
+        "_FusedHop": (
+            lambda a, t: project(ops.fused_spectral_hop(a, th_h, amp_h, t,
+                                                        amp)),
+            lambda a, t: project(plain_hop(a, t))),
+        "_Readout": (
+            lambda a, t: (ops.intensity_readout(a, masks) * g).sum(),
+            lambda a, t: (ref.intensity_readout_ref(a, masks) * g).sum()),
+        "_PhaseApply": (
+            lambda a, t: project(ops.phase_apply(a, t, GAMMA)),
+            lambda a, t: project(ref.phase_apply_ref(a, t, GAMMA))),
+    }
+    for name, (kern, plain) in cases.items():
+        grads = []
+        for fn in (kern, plain):
+            a = x.clone().requires_grad_(True)
+            t = th.clone().requires_grad_(True)
+            wrt = [a] if name == "_Readout" else [a, t]
+            what = "d field" if name == "_Readout" else "d field, d phase"
+            grads.append(torch.autograd.grad(fn(a, t), wrt))
+        torch.cuda.synchronize()
+        _compare_grads(f"[kernels] {name} backward ({what}) vs "
+                       f"autograd of the plain version", grads[0], grads[1],
+                       KERNEL_RTOL)
 
 
 def _readout_einsum(u, masks):
@@ -293,7 +434,7 @@ def phase_slice(dev, smi: str, profile) -> dict:
         expect["phase_tf_apply"] += (1 + rfft) * nb
         expect["intensity_readout"] += nb
     print(f"[slice] serving-path launches {launches} (expected {expect})")
-    if launches != expect or min(launches.values()) == 0:
+    if launches != expect or not all(launches[k] for k in SERVING_KERNELS):
         raise AssertionError("the serving path did not run every kernel")
 
     # --- hold every deployment against its CPU copy (plain versions)
@@ -357,20 +498,26 @@ def phase_slice(dev, smi: str, profile) -> dict:
               f"{REPEATS} repeats (spread {max(rps) / min(rps) - 1:.1%})")
     if profile:
         p50 = min(r["p50_ms"] for r in perf["float32"])
-        _profile(engines[("float32", False)], x32, profile, p50)
+        eng = engines[("float32", False)]
+        _profile(lambda: eng.infer(x32), PROFILE_BATCHES, 1, "batch",
+                 profile, p50 * 1e3)
     return launches
 
 
-def _profile(eng, x32, path: str, p50_ms: float) -> None:
+def _profile(run, reps: int, units: int, unit: str, path: str,
+             unprofiled_us: float) -> None:
+    """torch.profiler table of ``reps`` calls of ``run`` (each doing
+    ``units`` batches or steps) with the device's busy time and idle share
+    per ``unit``, printed and written to ``path``."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(20):
-        eng.infer(x32)
+    for _ in range(max(2, reps // 5)):
+        run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_BATCHES):
-            eng.infer(x32)
+        for _ in range(reps):
+            run()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
     table = events.table(sort_by="cuda_time_total", row_limit=25)
@@ -379,17 +526,163 @@ def _profile(eng, x32, path: str, p50_ms: float) -> None:
     busy_us = sum(getattr(e, "self_device_time_total", None)
                   or getattr(e, "self_cuda_time_total", 0) for e in events
                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    per_batch_us = busy_us / PROFILE_BATCHES
-    wall_us = wall / PROFILE_BATCHES * 1e6
-    table += (f"\n{PROFILE_BATCHES} batches: device busy {per_batch_us:.1f} "
-              f"us per batch; wall {wall_us:.1f} us per batch under the "
-              f"profiler (idle share {1 - per_batch_us / wall_us:.1%}), "
-              f"unprofiled p50 {p50_ms * 1e3:.1f} us (idle share "
-              f"{1 - per_batch_us / (p50_ms * 1e3):.1%})\n")
+    n = reps * units
+    per_us = busy_us / n
+    wall_us = wall / n * 1e6
+    table += (f"\n{n} {unit}s: device busy {per_us:.1f} us per {unit}; wall "
+              f"{wall_us:.1f} us per {unit} under the profiler (idle share "
+              f"{1 - per_us / wall_us:.1%}), unprofiled {unprofiled_us:.1f} "
+              f"us per {unit} (idle share {1 - per_us / unprofiled_us:.1%})"
+              f"\n")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(table)
     print(table)
+
+
+def _hold_step(what: str, got, want) -> None:
+    """Loss and every layer's d/dphase within SLICE_RTOL of the max."""
+    (loss, _, grads), (wloss, _, wgrads) = got, want
+    rel = abs(float(loss) - float(wloss)) / abs(float(wloss))
+    print(f"[train] {what}: loss {float(loss):.6f} vs {float(wloss):.6f} "
+          f"(rel {rel:.3e}, tol {SLICE_RTOL:g})")
+    if not (math.isfinite(float(loss)) and rel <= SLICE_RTOL):
+        raise AssertionError(f"{what}: losses disagree")
+    keys = sorted(wgrads["phase"])
+    _compare_grads(f"[train] {what}: d/dphase of {len(keys)} layers",
+                   [grads["phase"][k] for k in keys],
+                   [wgrads["phase"][k] for k in keys], SLICE_RTOL)
+
+
+def phase_train(dev, smi: str, profile) -> dict:
+    """donn-mnist-5l training on both engines; returns the counted
+    launches and the per-step launches of each engine."""
+    cfg = dataclasses.replace(get_config("donn-mnist-5l"), use_pallas=True)
+    L = cfg.depth
+    models = {
+        "scan": build_model(cfg, device=dev),
+        "eager": build_model(dataclasses.replace(cfg, engine="eager"),
+                             device=dev),
+    }
+    params = models["scan"].init(torch.Generator().manual_seed(0))
+    xs, ys = synth_digits(32, seed=0)
+    C = cfg.num_classes
+
+    # --- gradients: the card against a CPU copy, then eager against scan,
+    # at the config's gamma and at the calibrated one.  At gamma 1.12 the
+    # n=200 logits average ~190 and the softmax of the loss is saturated:
+    # a logit's relative rounding error times its size reaches the
+    # gradient, so two f32 paths on one CPU already differ by ~2e-5 there,
+    # against ~1e-6 at the calibrated gamma (logits ~2).
+    dx, dy = synth_digits(512, seed=0)
+    gamma = calibrate_gamma(models["scan"], params, dx[:16])
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    for g in (cfg.gamma, gamma):
+        gcfg = dataclasses.replace(cfg, gamma=g)
+        scan = build_model(gcfg, device=dev)
+        card = loss_and_grads(scan, params, xs, ys, C)
+        _hold_step(f"gamma {g:.4f}: scan on the card vs the CPU copy "
+                   f"(plain versions)", card,
+                   loss_and_grads(build_model(gcfg, device="cpu"),
+                                  cpu_params, xs, ys, C))
+        eager = build_model(dataclasses.replace(gcfg, engine="eager"),
+                            device=dev)
+        _hold_step(f"gamma {g:.4f}: eager (K4) vs scan (K1/K2) on the card",
+                   loss_and_grads(eager, params, xs, ys, C), card)
+
+    # --- launches: TRAIN_STEPS counted optimizer steps per engine
+    expect = train_launches_per_step(L)
+    opt = AdamW(lr=1e-2)
+    counted = dict.fromkeys(ops.KERNELS, 0)
+    per_step = {}
+    for eng, model in models.items():
+        step = make_train_step(model, opt, C)
+        p, st = params, opt.init(params)
+        step(p, st, 0, xs, ys)  # cuFFT plans, first-use uploads
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for i in range(TRAIN_STEPS):
+            p, st, loss, _ = step(p, st, i, xs, ys)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        want = {k: v * TRAIN_STEPS for k, v in expect[eng].items()}
+        print(f"[train] {eng}: launches over {TRAIN_STEPS} steps {got} "
+              f"(expected {want})")
+        if got != want or not math.isfinite(float(loss)):
+            raise AssertionError(f"{eng}: the training step did not run "
+                                 "its kernels as counted")
+        per_step[eng] = {k: v // TRAIN_STEPS for k, v in got.items()}
+        for k, v in got.items():
+            counted[k] += v
+
+    # --- training works: a falling loss through the chunked driver.  At
+    # the config's gamma the saturated softmax barely moves the loss in 40
+    # steps; the reference's flow (examples/quickstart.py, paper §3.2)
+    # calibrates gamma first.  The loss must fall at the calibrated gamma;
+    # at the config's gamma the trajectory is reported, not asserted.
+    for g, held in ((cfg.gamma, False), (gamma, True)):
+        model = build_model(dataclasses.replace(cfg, gamma=g), device=dev)
+        res = train_classifier(model, params,
+                               batch_iterator(dx, dy, 32, seed=1), steps=40,
+                               lr=0.3, steps_per_call=CHUNK)
+        first = float(np.mean(res.losses[:8]))
+        last = float(np.mean(res.losses[-8:]))
+        print(f"[train] train_classifier 40 steps (gamma {g:.4f}, "
+              f"{'calibrated, asserted' if held else 'config, reported'}, "
+              f"lr 0.3, {CHUNK} per chunk) in {res.wall_time_s:.2f}s: "
+              f"mean loss of the first 8 {first:.4f}, of the last 8 "
+              f"{last:.4f}")
+        print(f"[train]   losses of the first 8 steps "
+              f"{[round(v, 5) for v in res.losses[:8]]}, of the last 8 "
+              f"{[round(v, 5) for v in res.losses[-8:]]}")
+        if held and not (np.all(np.isfinite(res.losses)) and last < first):
+            raise AssertionError("train_classifier: the loss did not fall")
+
+    # --- optimizer steps/s at batch 32: closed loops of CHUNK-step chunks
+    # on device-resident batches (one sync per chunk), rows interleaved
+    rows = [("scan + kernels (K1/K2/K3)", models["scan"]),
+            ("eager + K4 (K4/K3)", models["eager"]),
+            ("scan use_pallas=False (plain torch)",
+             build_model(dataclasses.replace(cfg, use_pallas=False),
+                         device=dev))]
+    xs8 = torch.from_numpy(np.stack([xs] * CHUNK)).to(dev)
+    ys8 = torch.from_numpy(np.stack([ys] * CHUNK)).to(dev)
+    chunks = {label: make_train_chunk(m, opt, C) for label, m in rows}
+    state = opt.init(params)
+    perf = {label: [] for label, _ in rows}
+    for rep in range(REPEATS):
+        for label, _ in rows:
+            fn = chunks[label]
+            for _ in range(2):
+                fn(params, state, 0, xs8, ys8)[2].cpu()
+            n_steps = 0
+            t0 = time.perf_counter()
+            t_end = t0 + WINDOW_S
+            while time.perf_counter() < t_end:
+                fn(params, state, 0, xs8, ys8)[2].cpu()
+                n_steps += CHUNK
+            sps = n_steps / (time.perf_counter() - t0)
+            perf[label].append(sps)
+            print(f"[train] {label} (repeat {rep + 1}/{REPEATS}): "
+                  f"{sps:.1f} optimizer steps/s at batch 32 over {n_steps} "
+                  f"steps ({smi})")
+    for label, v in perf.items():
+        print(f"[train] {label}: steps/s {min(v):.1f}-{max(v):.1f} across "
+              f"{REPEATS} repeats (spread {max(v) / min(v) - 1:.1%})")
+    if profile:
+        fn = chunks[rows[0][0]]
+        _profile(lambda: fn(params, state, 0, xs8, ys8)[2].cpu(),
+                 PROFILE_CHUNKS, CHUNK, "training step", profile + ".train",
+                 1e6 / min(perf[rows[0][0]]))
+
+    # --- train -> freeze -> serve through the CLI at the config's width
+    rps = serve_donn.main(["--n", "200", "--depth", "5", "--distance",
+                           "0.30", "--det-size", "20", "--use-pallas",
+                           "--train-steps", "16", "--requests", "32",
+                           "--device", "cuda"])
+    if not rps > 0:
+        raise AssertionError("serve_donn --train-steps served nothing")
+    return {"counted": counted, "per_step": per_step}
 
 
 def phase_cli() -> None:
@@ -403,14 +696,17 @@ def phase_cli() -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="FILE", default=None,
-                    help="write a torch.profiler table of the serving path")
+                    help="write torch.profiler tables of the serving path "
+                         "(FILE) and a training chunk (FILE.train)")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     rows = phase_kernels(dev)
+    phase_backward(dev)
     launches = phase_slice(dev, smi, args.profile)
+    train = phase_train(dev, smi, args.profile)
     phase_cli()
     kernels = []
     for name in ops.KERNELS:
@@ -418,7 +714,11 @@ def main(argv=None) -> int:
         source, replaces = KERNEL_META[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + train["counted"][name],
+            "serve_launches": launches[name],
+            "train_launches": {eng: c[name]
+                               for eng, c in train["per_step"].items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -1,4 +1,5 @@
-"""LightRidge core on PyTorch: the serving slice of the DONN framework."""
+"""LightRidge core on PyTorch: the training and serving slices of the DONN
+framework."""
 from repro_torch.core.config import DONNConfig, LayerSpec
 from repro_torch.core.diffraction import Grid, intensity, transfer_function
 from repro_torch.core.laser import Laser, data_to_cplex

@@ -1,10 +1,12 @@
-"""Hardware-software codesign (LightRidge §3.3), deploy-time forward.
+"""Hardware-software codesign (LightRidge §3.3).
 
-The port of ``repro.core.codesign`` for the frozen serving slice: device
-response curves, QAT rounding, the deterministic (rng-free) Gumbel
-relaxation and post-training quantization, all forward only.  Training
-with straight-through gradients and Gumbel noise comes with the training
-slice.
+The port of ``repro.core.codesign``: device response curves, QAT rounding
+with the straight-through estimator, the deterministic (rng-free) Gumbel
+relaxation (soft or straight-through hard) and post-training
+quantization.  ``.detach()`` is the reference's ``jax.lax.stop_gradient``:
+the rounded correction carries no gradient, so d phi_eff / d phi is 1
+(``torch.round`` alone has a zero gradient).  Gumbel noise (``rng``)
+comes with the DSE/codesign slice.
 
 ``wrap_phase`` is ``torch.remainder`` — a floored modulo with the sign of
 the divisor, like ``jnp.mod``; ``torch.fmod`` truncates and would keep
@@ -60,10 +62,10 @@ def wrap_phase(phi: torch.Tensor, phase_range: float = TWO_PI) -> torch.Tensor:
 
 
 def quantize_qat(phi: torch.Tensor, dev: DeviceSpec) -> torch.Tensor:
-    """Quantization-aware phase (QAT [28]), forward value.
+    """Straight-through-estimator quantization-aware phase (QAT [28]).
 
-    ``phi_w + (q - phi_w)`` is the reference's straight-through spelling,
-    kept so the rounding of the two sums matches it.
+    ``phi_w + (q - phi_w).detach()`` is the reference's spelling: the two
+    sums round as its forward does, and the gradient is that of ``phi_w``.
     """
     phi_w = wrap_phase(phi, dev.phase_range)
     if dev.response_gamma == 1.0:
@@ -73,7 +75,7 @@ def quantize_qat(phi: torch.Tensor, dev: DeviceSpec) -> torch.Tensor:
         levels = _levels(dev, phi_w)
         idx = torch.argmin(torch.abs(phi_w[..., None] - levels), dim=-1)
         q = levels[idx]
-    return phi_w + (q - phi_w)
+    return phi_w + (q - phi_w).detach()
 
 
 def quantize_gumbel(
@@ -87,12 +89,13 @@ def quantize_gumbel(
 
     Scores are negative squared circular distances to each device level; the
     softmax over levels gives the soft assignment (``hard`` takes the argmax
-    level as the forward value).  Noise (``rng``) comes with training.
+    level as the forward value with the soft assignment's gradient).  Noise
+    (``rng``) comes with the DSE/codesign slice.
     """
     if rng is not None:
         raise NotImplementedError(
-            "rng-driven Gumbel codesign comes with the training slice; the "
-            "serving slice resolves the deterministic relaxation (rng=None)"
+            "rng-driven Gumbel codesign comes with the DSE/codesign slice; "
+            "the port resolves the deterministic relaxation (rng=None)"
         )
     levels = _levels(dev, phi)
     phi_w = wrap_phase(phi, dev.phase_range)
@@ -104,7 +107,7 @@ def quantize_gumbel(
     phi_soft = torch.sum(soft * levels, dim=-1)
     if hard:
         phi_hard = levels[torch.argmax(logits, dim=-1)]
-        phi_soft = phi_soft + (phi_hard - phi_soft)
+        phi_soft = phi_soft + (phi_hard - phi_soft).detach()
     return phi_soft
 
 

@@ -2,9 +2,9 @@
 
 A verbatim copy of ``repro.core.config``: the port keeps its own copy so it
 imports nothing of the JAX package, and the field list is pinned equal to
-the reference's by tests/test_torch_geometry.py.  Fields that steer only
-JAX machinery (``scan_unroll``, ``remat``) are accepted and have no effect
-in the port's forward-only engine.
+the reference's by tests/test_torch_geometry.py.  ``scan_unroll`` steers
+only JAX machinery and has no effect in the port; ``remat`` other than
+``"none"`` is refused when a plan is built (it waits for its own slice).
 """
 from __future__ import annotations
 

@@ -123,6 +123,31 @@ def crop_field(u: torch.Tensor, n: int) -> torch.Tensor:
     return u[..., lo:lo + n, lo:lo + n]
 
 
+def fraunhofer(u: torch.Tensor, grid: Grid, z: float,
+               wavelength: float) -> torch.Tensor:
+    """Far-field (Fraunhofer) propagation, Eq. 4: the shifted spectrum
+    times the quadratic output factor (``fraunhofer_quad``)."""
+    spec = torch.fft.fftshift(torch.fft.fft2(u), dim=(-2, -1))
+    return spec * torch.from_numpy(
+        fraunhofer_quad(grid, z, wavelength)).to(u.device)
+
+
+def resample_field(u: torch.Tensor, grid_in: Grid,
+                   grid_out: Grid) -> torch.Tensor:
+    """Resample field(s) onto ``grid_out``: the identity on equal grids.
+
+    Uniform stacks (every plane on the system grid) only ever take the
+    identity; stitches between unequal grids come with the heterogeneous
+    slice.
+    """
+    if grid_in == grid_out:
+        return u
+    raise NotImplementedError(
+        "resampling between unequal grids comes with the RGB/segmentation/"
+        "heterogeneous slice"
+    )
+
+
 def intensity(u: torch.Tensor) -> torch.Tensor:
     """|U|^2 — detector-plane light intensity."""
     return (u.real**2 + u.imag**2).to(torch.float32)

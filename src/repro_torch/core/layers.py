@@ -1,10 +1,13 @@
-"""Detector layer (LightRidge `lr.layers.detector`), PyTorch side.
+"""Model-level DONN layers (LightRidge `lr.layers`), PyTorch side.
 
-Pre-defined per-class readout regions: the field's intensity is pooled
-over each region (the paper's optical detector + ADC).  With
-``use_pallas`` the readout runs the hand-written K3 kernel on the card.
-The eager ``DiffractiveLayer`` (and its K4 kernel) comes with a later
-slice.
+- ``DiffractiveLayer``: free-space propagation over z followed by trainable
+  phase modulation — the eager engine's layer.  With ``use_pallas`` the
+  modulation runs the hand-written K4 kernel (``kernels.ops.phase_apply``)
+  on the card, forward and backward; the hop is the plain angular-spectrum
+  ``propagate_tf`` (cuFFT), as in the reference.
+- ``Detector``: pre-defined per-class readout regions: the field's
+  intensity is pooled over each region (the paper's optical detector +
+  ADC).  With ``use_pallas`` the readout runs the K3 kernel.
 """
 from __future__ import annotations
 
@@ -14,9 +17,75 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import codesign as cd
 from repro_torch.core import diffraction as df
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+
+
+class DiffractiveLayer:
+    """One diffractive layer: propagate(z) then phase-modulate.
+
+    The transfer function is precomputed at build time (static numpy
+    geometry) and uploaded once per torch device at first use; the
+    trainable parameter is the (n, n) phase map.  ``device`` is the
+    codesign ``DeviceSpec`` (the reference's name); the torch device is the
+    field's.
+    """
+
+    def __init__(
+        self,
+        grid: df.Grid,
+        z: float,
+        wavelength: float,
+        method: str = df.RS,
+        band_limit: bool = True,
+        pad: bool = False,
+        device: Optional[cd.DeviceSpec] = None,
+        codesign_mode: str = "none",
+        gamma: float = 1.0,
+        use_pallas: bool = False,
+    ):
+        self.grid = grid
+        self.z = z
+        self.wavelength = wavelength
+        self.method = method
+        self.pad = pad
+        self.device = device
+        self.codesign_mode = codesign_mode
+        self.gamma = gamma
+        self.use_pallas = use_pallas
+        if method == df.FRAUNHOFER:
+            self.h = None  # df.fraunhofer at call time
+        else:
+            from repro_torch.core.propagation import cached_transfer_function
+
+            self.h = cached_transfer_function(grid, z, wavelength, method,
+                                              band_limit, pad=pad)
+        self._h_dev: dict = {}  # str(torch device) -> uploaded TF
+
+    def propagate(self, u: torch.Tensor) -> torch.Tensor:
+        if self.method == df.FRAUNHOFER:
+            return df.fraunhofer(u, self.grid, self.z, self.wavelength)
+        key = str(u.device)
+        h = self._h_dev.get(key)
+        if h is None:
+            h = self._h_dev[key] = torch.from_numpy(self.h).to(u.device)
+        if self.pad:
+            n = self.grid.n
+            return df.crop_field(df.propagate_tf(df.pad_field(u, n), h), n)
+        return df.propagate_tf(u, h)
+
+    def modulate(self, phi: torch.Tensor, u: torch.Tensor,
+                 rng=None) -> torch.Tensor:
+        phi_eff = cd.apply_codesign(phi, self.device, self.codesign_mode, rng)
+        if self.use_pallas:
+            return kops.phase_apply(u, phi_eff, self.gamma)
+        return u * (self.gamma * torch.exp(1j * phi_eff.to(torch.complex64)))
+
+    def __call__(self, phi: torch.Tensor, u: torch.Tensor,
+                 rng=None) -> torch.Tensor:
+        return self.modulate(phi, self.propagate(u), rng)
 
 
 def detector_region_coords(

@@ -1,8 +1,11 @@
 """DONN classifier (LightRidge `lr.models`), PyTorch side.
 
-The port of ``repro.core.models.DONN`` on the plan ("scan") engine: a
-stack of diffractive layers plus the class detector, forward only.  The
-RGB multi-channel and segmentation families, the eager engine and the
+The port of ``repro.core.models.DONN``: a stack of diffractive layers plus
+the class detector, on either engine — ``"scan"``, the fused
+``PropagationPlan`` (K1/K2 under ``use_pallas``), or ``"eager"``, the
+per-layer ``DiffractiveLayer`` loop (K4 under ``use_pallas``) that the
+reference keeps as its own reference path.  Both are differentiable in
+the phases.  The RGB multi-channel and segmentation families and the
 batched emulation runtime come with later slices; asking for them raises
 ``NotImplementedError``.
 
@@ -19,12 +22,37 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import codesign as cd
 from repro_torch.core import diffraction as df
 from repro_torch.core.config import DONNConfig
 from repro_torch.core.laser import Laser, data_to_cplex
-from repro_torch.core.layers import Detector
+from repro_torch.core.layers import Detector, DiffractiveLayer
 from repro_torch.core.propagation import plan_from_config
 from repro_torch.device import resolve_device
+
+
+def _build_layers(cfg: DONNConfig, gamma: float):
+    """Eager per-layer stack from the config: one ``DiffractiveLayer`` per
+    modulated layer plus the final free-space hop to the detector (no
+    modulation), as ``repro.core.models._build_layers``."""
+    specs = cfg.resolved_layers()
+    layers = [
+        DiffractiveLayer(
+            df.Grid(s.size, s.pixel_size), s.distance, cfg.wavelength,
+            method=s.approximation, band_limit=cfg.band_limit, pad=cfg.pad,
+            device=cd.device_for_layer(s.codesign, s.device_levels,
+                                       s.response_gamma),
+            codesign_mode=s.codesign, gamma=gamma,
+            use_pallas=cfg.use_pallas,
+        )
+        for s in specs
+    ]
+    final = DiffractiveLayer(
+        layers[-1].grid, cfg.gap_distances()[-1], cfg.wavelength,
+        method=specs[-1].approximation, band_limit=cfg.band_limit,
+        pad=cfg.pad, gamma=1.0, use_pallas=cfg.use_pallas,
+    )
+    return layers, final
 
 
 class DONN:
@@ -37,11 +65,6 @@ class DONN:
                 "multi-channel (RGB) DONNs come with the RGB/segmentation "
                 "slice"
             )
-        if cfg.engine != "scan":
-            raise NotImplementedError(
-                "the eager engine (and its phase_apply kernel) comes with a "
-                "later slice; use engine='scan'"
-            )
         if cfg.is_heterogeneous():
             raise NotImplementedError(
                 "heterogeneous stacks come with the RGB/segmentation/"
@@ -52,9 +75,10 @@ class DONN:
         self.grid = df.Grid(cfg.n, cfg.pixel_size)  # detector/system grid
         self.laser = laser or Laser(wavelength=cfg.wavelength)
         self.gamma = 1.0 if cfg.gamma is None else float(cfg.gamma)
-        self.in_grid = self.grid  # uniform stack: source plane = system grid
+        self.layers, self.final = _build_layers(cfg, self.gamma)
+        self.in_grid = self.layers[0].grid  # source plane (first layer)
         self.depth = cfg.depth
-        self._plan = None  # built on first use
+        self._plan = None  # built on first scan-path use
         self.detector = Detector(
             self.grid,
             cfg.num_classes,
@@ -91,6 +115,25 @@ class DONN:
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         return data_to_cplex(x, self.in_grid.n) * self.source_t
 
+    def fields(self, params, x: torch.Tensor, rng=None) -> list:
+        """All intermediate fields of the eager engine (lr.model.prop_view):
+        the encoded input, each layer's output and the detector plane."""
+        if rng is not None:
+            raise NotImplementedError(
+                "rng-driven codesign comes with the DSE/codesign slice"
+            )
+        u = self.encode(x)
+        out = [u]
+        cur = self.in_grid
+        for i, layer in enumerate(self.layers):
+            u = df.resample_field(u, cur, layer.grid)  # identity: equal grids
+            u = layer(params["phase"][f"layer_{i}"], u)
+            cur = layer.grid
+            out.append(u)
+        u = self.final.propagate(u)
+        out.append(df.resample_field(u, self.final.grid, self.grid))
+        return out
+
     def stacked_phases(self, params) -> torch.Tensor:
         """(L, N, N) phase stack in the plan's layout."""
         return self.plan.stack_phases(
@@ -99,8 +142,15 @@ class DONN:
 
     def apply(self, params, x: torch.Tensor, rng=None) -> torch.Tensor:
         """Images (..., h, w) -> per-class detector intensities (..., C)."""
-        u = self.plan.apply(self.stacked_phases(params), self.encode(x), rng)
+        if self.cfg.engine == "eager":
+            u = self.fields(params, x, rng)[-1]
+        else:
+            u = self.plan.apply(self.stacked_phases(params), self.encode(x),
+                                rng)
         return self.detector(u)
+
+    def prop_view(self, params, x: torch.Tensor, rng=None) -> list:
+        return [df.intensity(u) for u in self.fields(params, x, rng)]
 
 
 def build_model(cfg: DONNConfig, laser: Optional[Laser] = None, device=None):

@@ -1,6 +1,6 @@
 """Stacked propagation plan (the LightRidge hot path, Fig. 9), PyTorch side.
 
-The port of ``repro.core.propagation`` for the frozen serving slice:
+The port of ``repro.core.propagation`` for serving and training:
 
 1.  **TF cache** — transfer functions are built once per geometry with
     numpy and cached process-wide (LRU), as split real/imag planes plus
@@ -10,7 +10,8 @@ The port of ``repro.core.propagation`` for the frozen serving slice:
 2.  **Layer loop** — ``forward`` runs the modulated layers as a Python
     loop over the stacked ``(L, N, N)`` planes (the reference's
     ``lax.scan``; PyTorch runs eagerly, so the config's ``scan_unroll``
-    and ``remat`` have no effect here).
+    has no effect here, and ``remat`` other than ``"none"`` is refused by
+    ``plan_from_config``).
 3.  **Hand-written kernels** — with ``use_pallas`` (the reference's name,
     kept) every elementwise site runs a kernel written for Hopper: each
     modulated layer of a plain angular-spectrum plan is the fused spectral
@@ -19,16 +20,19 @@ The port of ``repro.core.propagation`` for the frozen serving slice:
     ``rfft_first`` layer 0 are K2 (``kernels.ops.phase_tf_apply``).
     Without it the planes are cartesian and each site is a plain complex
     multiply, the reference's jnp path.  ``frozen_modulation`` stores its
-    planes in the convention of the plan (polar or cartesian).
+    planes in the convention of the plan (polar or cartesian).  Under
+    autograd (``phis`` requiring grad) every kernel site runs through its
+    ``torch.autograd.Function``, so the backward pass launches K2 as the
+    reference's custom VJPs do.
 4.  **Frozen planes** — ``frozen_modulation`` folds the codesign device
     response and ``gamma * exp(j phi)`` once at deploy time, optionally in
     bf16 or per-layer-scaled int8 storage dequantized to f32 before any
     kernel sees them.
 
 Heterogeneous (segmented) plans, external transfer planes and layer masks
-for batched DSE emulation, and rng-driven codesign come with later slices;
-asking for a heterogeneous plan or for rng codesign raises
-``NotImplementedError``.
+for batched DSE emulation, rematerialization and rng-driven codesign come
+with later slices; asking for a heterogeneous plan, ``remat`` or rng
+codesign raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -82,6 +86,14 @@ def transfer_planes(grid: df.Grid, z: float, wavelength: float,
     }
     lru_put(_TF_CACHE, key, entry, _TF_CACHE_MAX)
     return entry
+
+
+def cached_transfer_function(grid: df.Grid, z: float, wavelength: float,
+                             method: str = df.RS, band_limit: bool = True,
+                             pad: bool = False) -> np.ndarray:
+    """Complex64 view of the cached transfer function (eager-path layers)."""
+    p = transfer_planes(grid, z, wavelength, method, band_limit, pad)
+    return (p["hr"] + 1j * p["hi"]).astype(np.complex64)
 
 
 # --------------------------------------------------------------------------
@@ -389,7 +401,7 @@ class PropagationPlan:
         precomputed modulation planes (``phis`` unused)."""
         if rng is not None:
             raise NotImplementedError(
-                "rng-driven codesign comes with the training slice"
+                "rng-driven codesign comes with the DSE/codesign slice"
             )
         if frozen is not None:
             return self.propagate_final(self.forward(None, u, frozen=frozen))
@@ -428,8 +440,15 @@ def plan_from_config(cfg, gamma: float) -> PropagationPlan:
 
     Physically invalid geometry raises ``PhysicsValidationError`` before
     any plane is built.  Heterogeneous configs (``cfg.layers`` surviving
-    canonicalization) need the segmented plan of a later slice.
+    canonicalization) need the segmented plan of a later slice, and
+    ``remat`` other than ``"none"`` (``torch.utils.checkpoint``) waits for
+    its own slice: both raise rather than run without.
     """
+    if cfg.remat != "none":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} (torch.utils.checkpoint) comes with a later "
+            "slice; the port stores every layer's activations (remat='none')"
+        )
     key = plan_cache_key(cfg, gamma)
     plan = lru_get(_PLAN_CACHE, key)
     if plan is not None:

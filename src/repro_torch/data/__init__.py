@@ -1,1 +1,1 @@
-"""Host-side data helpers of the port."""
+"""Data of the port: synthetic digits and the batch pipeline (numpy/torch)."""

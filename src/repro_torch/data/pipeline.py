@@ -1,10 +1,120 @@
-"""Batch shaping for bucketed serving (numpy, host side).
+"""Data pipeline runtime: background and device prefetch, batch shaping.
 
-``bucket_for`` and ``pad_batch`` from ``repro.data.pipeline``.
+The port of ``repro.data.pipeline``:
+
+- ``Prefetcher``: a worker thread keeps a bounded queue of ready batches
+  (host-side overlap); backpressure via the queue bound.  No port driver
+  uses it yet; it is kept as the reference's API, held to it by the
+  parity tests in ``tests/test_torch_train.py``.
+- ``device_prefetch``: keeps up to ``size`` batches in flight to the
+  device, so the upload of batch k+1 overlaps the step consuming batch k
+  (the feeder of the chunked training driver).
+- ``stack_batches``: groups per-step batches into stacked ``(S, B, ...)``
+  chunks for ``repro_torch.core.train_utils.make_train_chunk``.
+- ``bucket_for`` / ``pad_batch``: shape bucketing for serving
+  (``repro_torch.runtime.inference``).
 """
 from __future__ import annotations
 
+import collections
+import queue
+import threading
+from typing import Callable, Iterator, Optional
+
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.tree import tree_map
+
+
+class Prefetcher:
+    def __init__(self, it: Iterator, depth: int = 2,
+                 transform: Optional[Callable] = None):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._it = it
+        self._transform = transform
+        self._done = object()
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._work, daemon=True)
+        self._thread.start()
+
+    def _work(self):
+        try:
+            for item in self._it:
+                if self._transform is not None:
+                    item = self._transform(item)
+                self._q.put(item)
+        except BaseException as e:  # noqa: BLE001 - re-raised by __next__
+            self._err = e
+        finally:
+            self._q.put(self._done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._done:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        return item
+
+
+def device_prefetch(it: Iterator, size: int = 2, device=None):
+    """Keep up to ``size`` batches of ``it`` in flight to ``device``.
+
+    Every leaf (numpy array or tensor) is uploaded to ``device`` (the CUDA
+    card unless named).  On the card the host copy is pinned and the upload
+    is non-blocking, issued from the consumer's thread on its current
+    stream, so the steps that read the batch are ordered after it on that
+    stream; each batch gets its own pinned buffer, which PyTorch's caching
+    host allocator does not hand out again before the copy reading it has
+    finished.  Yields the same trees as ``it`` with tensor leaves.
+    """
+    if size < 1:
+        raise ValueError("device_prefetch needs size >= 1")
+    dev = resolve_device(device)
+    pin = dev.type == "cuda"
+
+    def put(leaf):
+        t = torch.as_tensor(leaf)
+        if pin and t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(dev, non_blocking=pin)
+
+    buf: collections.deque = collections.deque()
+    for item in it:
+        buf.append(tree_map(put, item))
+        if len(buf) >= size:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()
+
+
+def stack_batches(it: Iterator, steps_per_call: int,
+                  total: Optional[int] = None):
+    """Group per-step batches into stacked ``(S, B, ...)`` chunk trees.
+
+    Pulls up to ``total`` batches from ``it`` (all of them when ``None``)
+    and yields trees whose numpy leaves gained a leading chunk axis of
+    length ``steps_per_call`` (the final chunk may be shorter).
+    """
+    if steps_per_call < 1:
+        raise ValueError("stack_batches needs steps_per_call >= 1")
+    chunk: list = []
+    pulled = 0
+    for batch in it:
+        chunk.append(batch)
+        pulled += 1
+        if len(chunk) == steps_per_call:
+            yield tree_map(lambda *xs: np.stack(xs), *chunk)
+            chunk = []
+        if total is not None and pulled >= total:
+            break
+    if chunk:
+        yield tree_map(lambda *xs: np.stack(xs), *chunk)
 
 
 def bucket_for(size: int, buckets) -> int:

@@ -1,4 +1,5 @@
-// K2 — phase_tf_apply: the fused phase rotation + amplitude multiply.
+// K2 — phase_tf_apply: the fused phase rotation + amplitude multiply (and K4
+// — phase_apply, the eager engine's shared-plane modulation, further down).
 //
 // Replaces src/repro/kernels/complex_mul.py::phase_tf_apply_pallas
 // (def :91, pallas_call :110), driven by ops.phase_tf_apply.
@@ -48,5 +49,59 @@ extern "C" int phase_tf_apply(const void* x, const void* theta,
       static_cast<const float2*>(x), static_cast<const float*>(theta),
       static_cast<const float*>(amp), static_cast<float2*>(out), slabs, hw,
       nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 — phase_apply: the eager engine's phase modulation.
+//
+// Replaces src/repro/kernels/complex_mul.py::phase_apply_pallas
+// (def :60, pallas_call :70), driven by ops.phase_apply.
+//
+//   out = gamma * u * exp(j * phi)
+//
+// u holds `fields` complex64 fields (interleaved re/im), phi is ONE real
+// f32 plane shared by every field, and gamma is a host scalar passed by
+// value (no amplitude plane is read, unlike K2).  The eager
+// DiffractiveLayer.modulate calls it on every modulated layer, forward
+// and (at -phi) backward.
+//
+// Bound on the card: bytes (8 read + 8 written per element, plus the 4
+// byte phase plane once).  Design: one thread per pixel of a field, float2
+// accesses; the plane is shared, so each thread computes its sincosf once
+// and walks kPhaseApplyFieldsPerThread fields with the same c/s (grid y
+// strides the fields).  Operand order of _phase_apply_kernel: c =
+// cos(phi)*gamma, s = sin(phi)*gamma, accurate sincosf (no
+// --use_fast_math).
+constexpr int64_t kPhaseApplyFieldsPerThread = 4;
+
+__global__ void phase_apply_kernel(const float2* __restrict__ u,
+                                   const float* __restrict__ phi,
+                                   float2* __restrict__ out, int64_t fields,
+                                   int64_t hw, float gamma) {
+  const int64_t pix = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (pix >= hw) return;
+  float s, c;
+  sincosf(phi[pix], &s, &c);
+  const float cw = c * gamma;
+  const float sw = s * gamma;
+  for (int64_t f = blockIdx.y; f < fields; f += gridDim.y) {
+    const int64_t i = f * hw + pix;
+    const float2 v = u[i];
+    out[i] = make_float2(v.x * cw - v.y * sw, v.x * sw + v.y * cw);
+  }
+}
+
+extern "C" int phase_apply(const void* u, const void* phi, void* out,
+                           int64_t fields, int64_t hw, float gamma,
+                           void* stream, int device) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  if (fields == 0 || hw == 0) return 0;
+  const int64_t rows = (fields + kPhaseApplyFieldsPerThread - 1) /
+                       kPhaseApplyFieldsPerThread;
+  phase_apply_kernel<<<elementwise_grid(hw, rows), kElementwiseThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(u), static_cast<const float*>(phi),
+      static_cast<float2*>(out), fields, hw, gamma);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Wrappers around the port's hand-written Hopper kernels (K1-K3).
+"""Wrappers around the port's hand-written Hopper kernels (K1-K4).
 
 The public functions keep the JAX package's plane-stack contract
 (``repro.kernels.ops``): ``theta``/``amp`` are one (H, W) plane shared by
@@ -10,10 +10,21 @@ what cuFFT returns), so no split into real/imag planes is needed.
 Dispatch is by the tensor's device, never by a try: on a CUDA tensor the
 wrapper launches its kernel (building it at first use) or raises; on a CPU
 tensor it runs the plain PyTorch version in ``ref``, which exists for the
-tests.  The kernels are forward only: on the card an input that requires
-grad raises (the autograd Functions with the reference's VJPs come with
-the training slice).  Planes in bf16 storage are upcast to f32 by the
-callers before they get here.
+tests.  Planes in bf16 storage are upcast to f32 by the callers before
+they get here.
+
+Gradients: each public function runs through a ``torch.autograd.Function``
+with the reference's custom VJP (``_PhaseTFApply``, ``_FusedHop``,
+``_Readout``, ``_PhaseApply``).  Their forward and backward dispatch by
+device like the raw wrappers, so on the card the backward launches the
+kernels (K2 for the TF multiply and the hop, K4 for the eager
+modulation) and on the CPU it runs the same formulas on the plain
+versions.  PyTorch's gradient of a real loss with respect to a complex
+tensor is dL/dRe + j dL/dIm, the reference's split-plane cotangent
+(g_r, g_i), so the formulas carry over unchanged.  The raw wrappers
+(``conj_phase_scale``, ``phase_tf_apply_planes``,
+``intensity_readout_rows``, ``phase_apply_rows``) record no gradient: on
+the card they raise when grad mode is on and an input requires grad.
 
 Every launch adds one to ``LAUNCHES[name]`` — the count that shows a run
 really went through the kernels (``reset_launch_counts`` /
@@ -28,7 +39,8 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-KERNELS = ("conj_phase_scale", "phase_tf_apply", "intensity_readout")
+KERNELS = ("conj_phase_scale", "phase_tf_apply", "intensity_readout",
+           "phase_apply")
 LAUNCHES = {k: 0 for k in KERNELS}
 _COUNT_LOCK = threading.Lock()  # the serving worker thread launches too
 
@@ -59,14 +71,17 @@ def _on_card(name: str, *tensors) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    for t in tensors:
-        if t.requires_grad:
-            raise RuntimeError(
-                f"{name}: the CUDA kernel is forward only and an input "
-                "requires grad; its autograd Function comes with the "
-                "training slice"
-            )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: a raw kernel call records no gradient and an input "
+            "requires grad; call the public wrapper (its autograd Function)"
+        )
     return True
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """The memory a kernel reads: no lazy conjugate/negative bit, dense."""
+    return t.resolve_conj().resolve_neg().contiguous()
 
 
 def _stream(dev: torch.device) -> int:
@@ -95,7 +110,7 @@ def conj_phase_scale(x, theta, amp, nb: int, sign: float, scale: float):
     _check_stack("conj_phase_scale", x, theta, amp, nb)
     if not _on_card("conj_phase_scale", x, theta, amp):
         return ref.conj_phase_scale_ref(x, theta, amp, nb, sign, scale)
-    x, theta, amp = x.contiguous(), theta.contiguous(), amp.contiguous()
+    x, theta, amp = _dense(x), _dense(theta), _dense(amp)
     out = torch.empty_like(x)
     lib = build.library("spectral_hop")
     build.check(lib, lib.conj_phase_scale(
@@ -112,7 +127,7 @@ def phase_tf_apply_planes(x, theta, amp, nb: int):
     _check_stack("phase_tf_apply", x, theta, amp, nb)
     if not _on_card("phase_tf_apply", x, theta, amp):
         return ref.phase_tf_apply_ref(x, theta, amp, nb)
-    x, theta, amp = x.contiguous(), theta.contiguous(), amp.contiguous()
+    x, theta, amp = _dense(x), _dense(theta), _dense(amp)
     out = torch.empty_like(x)
     lib = build.library("complex_mul")
     build.check(lib, lib.phase_tf_apply(
@@ -138,7 +153,7 @@ def intensity_readout_rows(u, masks):
         )
     if not _on_card("intensity_readout", u, masks):
         return ref.intensity_readout_ref(u, masks)
-    u, masks = u.contiguous(), masks.contiguous()
+    u, masks = _dense(u), _dense(masks)
     B, H, W = u.shape
     C = masks.shape[0]
     lib = build.library("intensity_readout")
@@ -151,6 +166,144 @@ def intensity_readout_rows(u, masks):
     ), "intensity_readout")
     _count("intensity_readout")
     return out
+
+
+def phase_apply_rows(u, phi, gamma: float):
+    """K4: gamma * u * exp(j phi); (B, H, W) complex64 fields, one (H, W)
+    f32 phase plane shared by every field, gamma a host float."""
+    if u.dtype != torch.complex64 or phi.dtype != torch.float32:
+        raise TypeError(
+            f"phase_apply: needs complex64 fields and a float32 phase, got "
+            f"{u.dtype} and {phi.dtype}"
+        )
+    if u.dim() != 3 or phi.dim() != 2 or u.shape[1:] != phi.shape:
+        raise ValueError(
+            f"phase_apply: fields {tuple(u.shape)} vs phase "
+            f"{tuple(phi.shape)}"
+        )
+    if not _on_card("phase_apply", u, phi):
+        return ref.phase_apply_ref(u, phi, gamma)
+    u, phi = _dense(u), _dense(phi)
+    out = torch.empty_like(u)
+    lib = build.library("complex_mul")
+    build.check(lib, lib.phase_apply(
+        u.data_ptr(), phi.data_ptr(), out.data_ptr(), u.shape[0],
+        u.shape[1] * u.shape[2], float(gamma), _stream(u.device),
+        u.get_device(),
+    ), "phase_apply")
+    _count("phase_apply")
+    return out
+
+
+# --------------------------------------------------------------------------
+# autograd Functions: the reference's custom VJPs (repro/kernels/ops.py)
+# --------------------------------------------------------------------------
+def _dphase(g, out, P: int, nb: int):
+    """d theta = sum over each plane's nb fields of (g_i out_r - g_r out_i),
+    since d out / d theta = j out."""
+    H, W = out.shape[-2:]
+    cot = g.imag * out.real - g.real * out.imag
+    return cot.reshape(P, nb, H, W).sum(dim=1)
+
+
+class _PhaseTFApply(torch.autograd.Function):
+    """K2 with the VJP of ``ops.py:177-189``: dx = K2(g, -theta, amp),
+    d theta = sum_nb (g_i out_r - g_r out_i), d amp = 0 (static geometry)."""
+
+    @staticmethod
+    def forward(x, theta, amp, nb):
+        return phase_tf_apply_planes(x, theta, amp, nb)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, theta, amp, nb = inputs
+        ctx.nb = nb
+        ctx.save_for_backward(theta, amp, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        theta, amp, out = ctx.saved_tensors
+        dx = dtheta = None
+        if ctx.needs_input_grad[0]:
+            dx = phase_tf_apply_planes(g, -theta, amp, ctx.nb)
+        if ctx.needs_input_grad[1]:
+            dtheta = _dphase(g, out, theta.shape[0], ctx.nb)
+        return dx, dtheta, None, None
+
+
+class _FusedHop(torch.autograd.Function):
+    """The fused hop (two K1 passes) with the VJP of ``ops.py:287-305``:
+    dx = ifft2(K2(fft2(K2(g, -theta_m, amp_m)), -theta_h, amp_h)),
+    d theta_m = sum_nb (g_i out_r - g_r out_i); the TF planes and amp_m
+    are static geometry (zero cotangent)."""
+
+    @staticmethod
+    def forward(x, th_h, amp_h, th_m, amp_m, nb):
+        return _fused_hop_planes(x, (th_h, amp_h, th_m, amp_m), nb)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, th_h, amp_h, th_m, amp_m, nb = inputs
+        ctx.nb = nb
+        ctx.save_for_backward(th_h, amp_h, th_m, amp_m, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        th_h, amp_h, th_m, amp_m, out = ctx.saved_tensors
+        dx = dth_m = None
+        if ctx.needs_input_grad[0]:
+            v = phase_tf_apply_planes(g, -th_m, amp_m, ctx.nb)
+            w = phase_tf_apply_planes(torch.fft.fft2(v), -th_h, amp_h, ctx.nb)
+            dx = torch.fft.ifft2(w)
+        if ctx.needs_input_grad[3]:
+            dth_m = _dphase(g, out, th_m.shape[0], ctx.nb)
+        return dx, None, None, dth_m, None, None
+
+
+class _Readout(torch.autograd.Function):
+    """K3 with the VJP of ``ops.py:390-397``: du = 2u (g @ masks), the
+    masks are detector geometry (zero cotangent)."""
+
+    @staticmethod
+    def forward(u, masks):
+        return intensity_readout_rows(u, masks)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, masks = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        w = torch.einsum("bc,chw->bhw", g, masks)
+        return u * (2.0 * w), None
+
+
+class _PhaseApply(torch.autograd.Function):
+    """K4 with the VJP of ``ops.py:115-125``: du = K4(g, -phi, gamma),
+    d phi = sum_B (g_i out_r - g_r out_i)."""
+
+    @staticmethod
+    def forward(u, phi, gamma):
+        return phase_apply_rows(u, phi, gamma)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, phi, gamma = inputs
+        ctx.gamma = gamma
+        ctx.save_for_backward(phi, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        phi, out = ctx.saved_tensors
+        du = dphi = None
+        if ctx.needs_input_grad[0]:
+            du = phase_apply_rows(g, -phi, ctx.gamma)
+        if ctx.needs_input_grad[1]:
+            dphi = _dphase(g, out, 1, out.shape[0])[0]
+        return du, dphi, None
 
 
 # --------------------------------------------------------------------------
@@ -201,7 +354,7 @@ def phase_tf_apply(x, theta, amp):
     plane stack (*P, H, W) with x: (..., *P, H, W).
     """
     return _apply_stacked(
-        lambda x3, p, nb: phase_tf_apply_planes(x3, p[0], p[1], nb),
+        lambda x3, p, nb: _PhaseTFApply.apply(x3, p[0], p[1], nb),
         x, (theta, amp),
     )
 
@@ -221,16 +374,34 @@ def fused_spectral_hop(x, theta_h, amp_h, theta_m, amp_m):
     fft2 -> K1(-theta_h, amp_h) -> fft2 -> K1(+theta_m, amp_m / (H*W)), via
     ifft2(y) = conj(fft2(conj(y))) / (H*W) — the reference's structure, so
     the port stays numerically close to it.  The four planes broadcast to
-    one shape: (H, W) for every field or a (*P, H, W) stack.
+    one shape: (H, W) for every field or a (*P, H, W) stack — outside the
+    autograd Function, so d theta_m folds back to the caller's shape.
     """
     planes = (theta_h, amp_h, theta_m, amp_m)
     bshape = torch.broadcast_shapes(*(p.shape for p in planes))
     planes = tuple(p.expand(bshape).contiguous() for p in planes)
-    return _apply_stacked(_fused_hop_planes, x, planes)
+    return _apply_stacked(
+        lambda x3, p, nb: _FusedHop.apply(x3, *p, nb), x, planes)
 
 
 def intensity_readout(u, masks):
     """(..., H, W) complex fields + (C, H, W) masks -> (..., C) through K3."""
     H, W = u.shape[-2:]
-    out = intensity_readout_rows(u.reshape(-1, H, W), masks)
+    out = _Readout.apply(u.reshape(-1, H, W), masks)
     return out.reshape(tuple(u.shape[:-2]) + (masks.shape[0],))
+
+
+def phase_apply(u, phi, gamma: float = 1.0):
+    """gamma * u * exp(j phi) through K4 (``ops.phase_apply``'s contract).
+
+    u: complex (..., H, W) (a 2-D field is one field); phi: one (H, W)
+    plane shared by every field; gamma a Python float.
+    """
+    H, W = u.shape[-2:]
+    if tuple(phi.shape) != (H, W):
+        raise ValueError(
+            f"phase_apply: phase {tuple(phi.shape)} must be one (H, W) plane "
+            f"matching the fields {tuple(u.shape)}"
+        )
+    out = _PhaseApply.apply(u.reshape(-1, H, W), phi, float(gamma))
+    return out.reshape(u.shape)

@@ -4,9 +4,10 @@ Each function computes exactly what its CUDA kernel computes, with the
 reference Pallas kernel's operand order, on the plane-major layout the
 wrappers in ``ops`` hand to the kernels: ``x`` is (P*nb, H, W) complex64,
 ``theta``/``amp`` are (P, H, W) float32 and plane p applies to the slab
-``x[p*nb:(p+1)*nb]``.  The wrappers run these for tensors on the CPU (the
-tests); ``chip_smoke.py`` runs them on the card to hold each kernel
-against them.  Nothing on the serving path calls them for a CUDA tensor.
+``x[p*nb:(p+1)*nb]``; K4 takes (B, H, W) fields and one shared (H, W)
+phase plane.  The wrappers run these for tensors on the CPU (the tests);
+``chip_smoke.py`` runs them on the card to hold each kernel against them.
+Nothing on the serving or training path calls them for a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -33,6 +34,13 @@ def phase_tf_apply_ref(x, theta, amp, nb: int):
     c = torch.cos(th) * a
     s = torch.sin(th) * a
     return torch.complex(xr * c - xi * s, xr * s + xi * c).reshape(x.shape)
+
+
+def phase_apply_ref(u, phi, gamma: float):
+    """gamma * u * exp(j phi), phi one (H, W) plane for every field (K4)."""
+    c = torch.cos(phi) * gamma
+    s = torch.sin(phi) * gamma
+    return torch.complex(u.real * c - u.imag * s, u.real * s + u.imag * c)
 
 
 def intensity_readout_ref(u, masks):

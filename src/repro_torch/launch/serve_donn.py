@@ -1,20 +1,23 @@
-"""DONN serving launcher on the card: freeze a model, serve a request stream.
+"""DONN serving launcher on the card: train, freeze, serve a request stream.
 
 The port of ``repro.launch.serve_donn`` for ``--family classify``: builds
-a DONN with random phases from ``--seed``, freezes it into a
-``DeployedDONN`` (codesign response + modulation planes folded once),
-warms every bucket, then drives a synthetic request load through the
-micro-batching dispatcher and reports requests/sec plus latency
+a DONN with random phases from ``--seed``, optionally quick-trains it on
+the synthetic digits (``--train-steps N``: ``synth_digits(512, seed)``,
+batch 32, AdamW at lr 0.3, 8 steps per chunk, as the reference), freezes
+it into a ``DeployedDONN`` (codesign response + modulation planes folded
+once), warms every bucket, then drives a synthetic request load through
+the micro-batching dispatcher and reports requests/sec plus latency
 percentiles, and the shed/expired counts when the resilience knobs engage.
 
-The flags are the reference's.  Training before freezing
-(``--train-steps``), artifacts (``--artifact``/``--save-artifact``),
-multi-device dispatch and the replica fleet come with later slices and
-raise ``NotImplementedError``.  ``--device`` defaults to the CUDA card.
+The flags are the reference's.  Artifacts (``--artifact``/
+``--save-artifact``), multi-device dispatch and the replica fleet come
+with later slices and raise ``NotImplementedError``.  ``--device``
+defaults to the CUDA card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve_donn --n 200 --depth 5 \
-      --distance 0.30 --det-size 20 --use-pallas --requests 256
+      --distance 0.30 --det-size 20 --use-pallas --train-steps 16 \
+      --requests 256
 """
 from __future__ import annotations
 
@@ -54,7 +57,6 @@ def build_cfg(args) -> DONNConfig:
 
 def _refuse_later_slices(args) -> None:
     later = [
-        (args.train_steps > 0, "--train-steps", "training"),
         (args.artifact is not None, "--artifact", "persistence"),
         (args.save_artifact is not None, "--save-artifact", "persistence"),
         (args.mesh_devices > 1, "--mesh-devices", "multi-device"),
@@ -81,7 +83,7 @@ def main(argv=None):
     ap.add_argument("--use-pallas", action="store_true",
                     help="run the hand-written kernels (the reference's name)")
     ap.add_argument("--train-steps", type=int, default=0,
-                    help="quick-train before freezing (training slice)")
+                    help="quick-train on synth digits before freezing")
     ap.add_argument("--requests", type=int, default=256)
     ap.add_argument("--buckets", default=",".join(map(str, DEFAULT_BUCKETS)))
     ap.add_argument("--max-wait-ms", type=float, default=2.0)
@@ -112,6 +114,18 @@ def main(argv=None):
     cfg = build_cfg(args)
     model = build_model(cfg, device=device)
     params = model.init(torch.Generator().manual_seed(args.seed))
+    if args.train_steps > 0:
+        from repro_torch.core.train_utils import train_classifier
+        from repro_torch.data.synthetic import batch_iterator, synth_digits
+
+        xs, ys = synth_digits(512, seed=args.seed)
+        res = train_classifier(model, params,
+                               batch_iterator(xs, ys, 32, seed=1),
+                               steps=args.train_steps, lr=0.3,
+                               steps_per_call=8)
+        params = res.params
+        print(f"[serve_donn] trained {args.train_steps} steps "
+              f"({res.wall_time_s:.1f}s, final loss {res.losses[-1]:.4f})")
     t0 = time.perf_counter()
     deployed = freeze(model, params, device=device)
     if device.type == "cuda":

@@ -128,36 +128,85 @@ def test_wrappers_launch_kernels_never_plain_versions(cuda, monkeypatch):
                                       amp.cpu()),
         "tf": ops.phase_tf_apply(x.cpu(), th.cpu(), amp.cpu()),
         "readout": ops.intensity_readout(x.cpu(), masks.cpu()),
+        "k4": ops.phase_apply(x.cpu(), th[0].cpu(), 1.12),
     }
 
     def forbidden(*a, **k):
         raise AssertionError("a plain version ran on a CUDA tensor")
 
     for fn in ("conj_phase_scale_ref", "phase_tf_apply_ref",
-               "intensity_readout_ref"):
+               "intensity_readout_ref", "phase_apply_ref"):
         monkeypatch.setattr(ref, fn, forbidden)
     ops.reset_launch_counts()
     got = {
         "hop": ops.fused_spectral_hop(x, th, amp, th, amp),
         "tf": ops.phase_tf_apply(x, th, amp),
         "readout": ops.intensity_readout(x, masks),
+        "k4": ops.phase_apply(x, th[0], 1.12),
     }
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"conj_phase_scale": 2,
                                    "phase_tf_apply": 1,
-                                   "intensity_readout": 1}
+                                   "intensity_readout": 1,
+                                   "phase_apply": 1}
     for k in want:
         assert got[k].device.type == "cuda"
         assert _rel(got[k], want[k]) <= 1e-5, k
 
 
-def test_kernels_refuse_inputs_that_require_grad(cuda):
-    x = torch.ones((2, 8, 8), dtype=torch.complex64, device=cuda)
-    th = torch.zeros((8, 8), device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        ops.phase_tf_apply(x, th, torch.ones((8, 8), device=cuda))
+def test_gradients_flow_through_each_function_on_the_card(cuda):
+    """Each autograd Function's backward launches its kernel on the card
+    and matches autograd through the plain version there (1e-5 of the
+    max); a raw kernel call refuses to drop a gradient silently, and
+    inputs on two devices still raise."""
+    gen = torch.Generator().manual_seed(2)
+    x = _field(gen, (4, 37, 53), cuda)
+    th = (torch.rand((37, 53), generator=gen) * 6.0).to(cuda)
+    amp = torch.rand((37, 53), generator=gen).to(cuda)
+    masks = torch.rand((10, 37, 53), generator=gen).to(cuda)
+    w = _field(gen, (4, 37, 53), cuda)
+
+    def project(out):
+        return (w.real * out.real + w.imag * out.imag).sum()
+
+    zero = dict.fromkeys(ops.KERNELS, 0)
+    fns = {  # kernel path, plain path, launches of forward + backward
+        "tf": (lambda a, t: ops.phase_tf_apply(a, t, amp),
+               lambda a, t: ref.phase_tf_apply_ref(a, t[None], amp[None], 4),
+               {**zero, "phase_tf_apply": 2}),
+        "hop": (lambda a, t: ops.fused_spectral_hop(a, th, amp, t, amp),
+                lambda a, t: torch.polar(amp, t) * torch.fft.ifft2(
+                    torch.polar(amp, th) * torch.fft.fft2(a)),
+                {**zero, "conj_phase_scale": 2, "phase_tf_apply": 2}),
+        "k4": (lambda a, t: ops.phase_apply(a, t, 1.12),
+               lambda a, t: ref.phase_apply_ref(a, t, 1.12),
+               {**zero, "phase_apply": 2}),
+    }
+    for name, (kern, plain, launches) in fns.items():
+        grads = []
+        for fn in (kern, plain):
+            a = x.clone().requires_grad_(True)
+            t = th.clone().requires_grad_(True)
+            ops.reset_launch_counts()
+            grads.append(torch.autograd.grad(project(fn(a, t)), [a, t]))
+            if fn is kern:
+                assert ops.launch_counts() == launches, name
+        torch.cuda.synchronize()
+        for got, want in zip(*grads):
+            assert _rel(got, want) <= 1e-5, name
+    u = x.clone().requires_grad_(True)
+    g = torch.rand((4, 10), generator=gen).to(cuda)
+    (du,) = torch.autograd.grad((ops.intensity_readout(u, masks) * g).sum(),
+                                u)
+    u2 = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        (ref.intensity_readout_ref(u2, masks) * g).sum(), u2)
+    assert _rel(du, want) <= 1e-5
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        ops.phase_tf_apply_planes(x, th[None].requires_grad_(True),
+                                  amp[None], 4)
     with pytest.raises(ValueError, match="inputs on"):
-        ops.phase_tf_apply(x, torch.zeros((8, 8)), torch.ones((8, 8)))
+        ops.phase_tf_apply(x, torch.zeros((37, 53)), torch.ones((37, 53)))
 
 
 def test_readout_is_deterministic_and_batch_independent(cuda):
@@ -187,6 +236,7 @@ def test_serving_slice_on_the_card_matches_cpu(cuda):
                             for f in [mb.submit(xi) for xi in x]])
         assert mb.close(timeout=30)
         counts = ops.launch_counts()
+        assert counts.pop("phase_apply") == 0  # the eager engine's kernel
         assert min(counts.values()) > 0, counts
         want = freeze(cpu_model, cpu_params, dtype, rfft,
                       device="cpu").forward(torch.from_numpy(x)).numpy()

@@ -230,5 +230,5 @@ def test_weight_fab_indices_match_reference():
 
 def test_rng_codesign_is_refused():
     dev = tcd.DeviceSpec(levels=4)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="DSE/codesign slice"):
         tcd.apply_codesign(torch.zeros(4), dev, "gumbel", rng=object())

@@ -9,6 +9,11 @@ Tolerance: max|port - jax| <= 1e-5 * max|jax| (f32).  Measured with the
 CPU builds of torch 2.13 and jax 0.9: K2 agrees to <= 1.3e-7, the K1 hop
 (two FFTs on each side) to <= 4.0e-7, K3 (sums in another order) to
 <= 7.8e-7.
+
+The VJP tests hold each autograd Function (on CPU tensors it runs the
+plain versions through the same backward formulas that launch the
+kernels on the card) against ``jax.vjp`` of the reference wrapper, for a
+fixed real projection ``sum(w_r out_r + w_i out_i)`` of the output.
 """
 import ctypes
 
@@ -16,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -178,8 +184,9 @@ def test_exported_signatures_read_the_c_prototypes():
     launchers = {
         "spectral_hop": {"conj_phase_scale": (
             [P, P, P, P, I64, I64, I64, F32, F32, P, INT], INT)},
-        "complex_mul": {"phase_tf_apply": (
-            [P, P, P, P, I64, I64, I64, P, INT], INT)},
+        "complex_mul": {
+            "phase_tf_apply": ([P, P, P, P, I64, I64, I64, P, INT], INT),
+            "phase_apply": ([P, P, P, I64, I64, F32, P, INT], INT)},
         "intensity_readout": {
             "intensity_readout": ([P, P, P, P, I64, I64, INT, P, INT], INT),
             "readout_tile_pixels": ([], INT)},
@@ -231,8 +238,9 @@ def test_card_wrappers_pass_the_launchers_their_c_arguments(monkeypatch):
     kops.conj_phase_scale(x, th, th, 2, -1.0, 1.0)
     kops.phase_tf_apply_planes(x, th, th, 2)
     kops.intensity_readout_rows(x, torch.zeros((4, 9, 11)))
+    kops.phase_apply_rows(x, th[0], 1.12)
     assert libs["spectral_hop"].calls == ["conj_phase_scale"]
-    assert libs["complex_mul"].calls == ["phase_tf_apply"]
+    assert libs["complex_mul"].calls == ["phase_tf_apply", "phase_apply"]
     assert libs["intensity_readout"].calls == ["readout_tile_pixels",
                                                "intensity_readout"]
     assert kops.launch_counts() == dict.fromkeys(kops.KERNELS, 1)
@@ -247,4 +255,166 @@ def test_cpu_path_launches_nothing():
     kops.fused_spectral_hop(x, th, th + 1, th, th + 1)
     kops.phase_tf_apply(x, th, th + 1)
     kops.intensity_readout(x, torch.ones((3, 8, 8)))
+    kops.phase_apply(x, th, 1.12)
     assert kops.launch_counts() == dict.fromkeys(kops.KERNELS, 0)
+
+
+# ------------------------------------------------------------ K4
+@pytest.mark.parametrize("ushape", [(4, 16, 16), (3, 37, 53), (16, 16),
+                                    (2, 3, 12, 20)])
+def test_phase_apply_matches_jax(ushape):
+    rng = np.random.default_rng(6)
+    u = _field(rng, ushape)
+    phi = rng.uniform(-2 * np.pi, 2 * np.pi, ushape[-2:]).astype(np.float32)
+    want = _jax_complex(jops.phase_apply(*_jax_split(u), jnp.asarray(phi),
+                                         1.12))
+    got = kops.phase_apply(torch.from_numpy(u), torch.from_numpy(phi), 1.12)
+    assert got.shape == ushape
+    assert _rel(got.numpy(), want) <= RTOL
+
+
+def test_phase_apply_plain_version_matches_jax_kernel():
+    """K4 alone against the Pallas kernel in interpret mode."""
+    from repro.kernels import complex_mul as jcm
+
+    rng = np.random.default_rng(7)
+    u = _field(rng, (3, 16, 128))  # Pallas blocks tile (8, 128) exactly
+    phi = rng.uniform(-7, 7, (16, 128)).astype(np.float32)
+    want = _jax_complex(jcm.phase_apply_pallas(
+        *_jax_split(u), jnp.asarray(phi), 1.12, bh=8, bw=128,
+        interpret=True))
+    got = kref.phase_apply_ref(torch.from_numpy(u), torch.from_numpy(phi),
+                               1.12)
+    assert _rel(got.numpy(), want) <= RTOL
+
+
+def test_phase_apply_rejects_bad_inputs():
+    u = torch.zeros((2, 8, 8), dtype=torch.complex64)
+    with pytest.raises(ValueError, match="one \\(H, W\\) plane"):
+        kops.phase_apply(u, torch.zeros((2, 8, 8)), 1.0)
+    with pytest.raises(TypeError, match="float32"):
+        kops.phase_apply(u, torch.zeros((8, 8), dtype=torch.float64), 1.0)
+
+
+# ------------------------------------------------------------ VJPs
+def _projection(rng, shape):
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def _port_vjp(fn, x, planes, w):
+    """Gradients of sum(w_r out_r + w_i out_i) w.r.t. x and the planes."""
+    xt = torch.from_numpy(x).requires_grad_(True)
+    pt = [torch.from_numpy(p).requires_grad_(True) for p in planes]
+    out = fn(xt, *pt)
+    loss = (torch.from_numpy(w[0]) * out.real
+            + torch.from_numpy(w[1]) * out.imag).sum()
+    return torch.autograd.grad(loss, [xt] + pt, allow_unused=True)
+
+
+def _jax_vjp(fn, x, planes, w):
+    out, vjp = jax.vjp(fn, *_jax_split(x), *(jnp.asarray(p) for p in planes))
+    grads = vjp((jnp.asarray(w[0]), jnp.asarray(w[1])))
+    return [_jax_complex(grads[:2])] + [np.asarray(g) for g in grads[2:]]
+
+
+# a shared (H, W) plane and a P=3 plane stack with nb=2
+VJP_SHAPES = [((4, 16, 16), (16, 16)), ((2, 3, 20, 24), (3, 20, 24))]
+
+
+@pytest.mark.parametrize("xshape,pshape", VJP_SHAPES)
+def test_phase_tf_apply_vjp_matches_jax(xshape, pshape):
+    rng = np.random.default_rng(8)
+    x = _field(rng, xshape)
+    theta, amp = _planes(rng, pshape)
+    w = _projection(rng, xshape)
+    got = _port_vjp(kops.phase_tf_apply, x, (theta, amp), w)
+    want = _jax_vjp(jops.phase_tf_apply, x, (theta, amp), w)
+    assert _rel(got[0].numpy(), want[0]) <= RTOL  # dx
+    assert _rel(got[1].numpy(), want[1]) <= RTOL  # d theta
+    assert got[2] is None and not np.any(want[2])  # d amp = 0
+
+
+@pytest.mark.parametrize("xshape,pshape", VJP_SHAPES)
+def test_fused_spectral_hop_vjp_matches_jax(xshape, pshape):
+    rng = np.random.default_rng(9)
+    x = _field(rng, xshape)
+    planes = (*_planes(rng, pshape), *_planes(rng, pshape))
+    w = _projection(rng, xshape)
+    got = _port_vjp(kops.fused_spectral_hop, x, planes, w)
+    want = _jax_vjp(jops.fused_spectral_hop, x, planes, w)
+    assert _rel(got[0].numpy(), want[0]) <= RTOL  # dx
+    assert _rel(got[3].numpy(), want[3]) <= RTOL  # d theta_m
+    for i in (1, 2, 4):  # TF planes and amp_m: static geometry
+        assert got[i] is None and not np.any(want[i])
+
+
+def test_fused_spectral_hop_vjp_folds_a_broadcast_plane():
+    """TF planes (H, W) shared, phases (3, H, W): d theta_m per slot."""
+    rng = np.random.default_rng(10)
+    x = _field(rng, (2, 3, 16, 16))
+    th_h, amp_h = _planes(rng, (16, 16))
+    th_m, amp_m = _planes(rng, (3, 16, 16))
+    planes = (th_h, amp_h, th_m, amp_m)
+    w = _projection(rng, x.shape)
+    got = _port_vjp(kops.fused_spectral_hop, x, planes, w)
+    want = _jax_vjp(jops.fused_spectral_hop, x, planes, w)
+    assert got[3].shape == (3, 16, 16)
+    assert _rel(got[0].numpy(), want[0]) <= RTOL
+    assert _rel(got[3].numpy(), want[3]) <= RTOL
+
+
+@pytest.mark.parametrize("ushape", [(4, 24, 24), (2, 3, 16, 20)])
+def test_intensity_readout_vjp_matches_jax(ushape):
+    rng = np.random.default_rng(11)
+    u = _field(rng, ushape)
+    masks = rng.uniform(-0.5, 1.0, (5,) + ushape[-2:]).astype(np.float32)
+    g = rng.standard_normal(ushape[:-2] + (5,)).astype(np.float32)
+    ut = torch.from_numpy(u).requires_grad_(True)
+    (du,) = torch.autograd.grad(
+        (kops.intensity_readout(ut, torch.from_numpy(masks))
+         * torch.from_numpy(g)).sum(), ut)
+    _, vjp = jax.vjp(lambda a, b: jops.intensity_readout(a, b,
+                                                         jnp.asarray(masks)),
+                     *_jax_split(u))
+    want = _jax_complex(vjp(jnp.asarray(g)))
+    assert _rel(du.numpy(), want) <= RTOL
+
+
+@pytest.mark.parametrize("ushape", [(4, 16, 16), (2, 3, 12, 20), (16, 16)])
+def test_phase_apply_vjp_matches_jax(ushape):
+    rng = np.random.default_rng(12)
+    u = _field(rng, ushape)
+    phi = rng.uniform(-7, 7, ushape[-2:]).astype(np.float32)
+    w = _projection(rng, ushape)
+    got = _port_vjp(lambda a, p: kops.phase_apply(a, p, 1.12), u, (phi,), w)
+    want = _jax_vjp(lambda a, b, p: jops.phase_apply(a, b, p, 1.12), u,
+                    (phi,), w)
+    assert _rel(got[0].numpy(), want[0]) <= RTOL  # du
+    assert _rel(got[1].numpy(), want[1]) <= RTOL  # d phi
+
+
+def test_backward_skips_input_gradients_nobody_needs():
+    """Layer 0's input needs no grad: its backward computes only d theta
+    (the reference's jit drops that work the same way)."""
+    calls = []
+    real = kops.phase_tf_apply_planes
+
+    def counting(*a, **k):
+        calls.append(a[0].shape)
+        return real(*a, **k)
+
+    x = torch.ones((2, 8, 8), dtype=torch.complex64)
+    th = torch.zeros((8, 8), requires_grad=True)
+    amp = torch.ones((8, 8))
+    try:
+        kops.phase_tf_apply_planes = counting
+        out = kops.fused_spectral_hop(x, th.detach(), amp, th, amp)
+        (g,) = torch.autograd.grad(out.real.sum(), th)
+        assert calls == [] and g.shape == (8, 8)
+        out = kops.fused_spectral_hop(x.requires_grad_(True), th.detach(),
+                                      amp, th, amp)
+        torch.autograd.grad(out.real.sum(), [x, th])
+        assert len(calls) == 2  # K2 twice for dx
+    finally:
+        kops.phase_tf_apply_planes = real

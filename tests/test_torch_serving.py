@@ -355,7 +355,6 @@ def test_serve_cli_on_cpu(capsys):
 @pytest.mark.parametrize("flags,match", [
     (["--family", "rgb"], "RGB"),
     (["--family", "segmentation"], "segmentation"),
-    (["--train-steps", "4"], "training"),
     (["--artifact", "dir"], "persistence"),
     (["--save-artifact", "dir"], "persistence"),
     (["--mesh-devices", "2"], "multi-device"),
@@ -370,7 +369,6 @@ def test_serve_cli_refuses_later_slices(flags, match):
 @pytest.mark.parametrize("kw,match", [
     (dict(channels=3), "RGB"),
     (dict(segmentation=True, skip_from=0), "segmentation"),
-    (dict(engine="eager"), "eager"),
     (dict(layers=(LayerSpec(0.05, size=40), LayerSpec(0.05))),
      "heterogeneous"),
 ])
@@ -381,9 +379,24 @@ def test_models_refuse_later_slices(kw, match):
         build_model(cfg, device=CPU)
 
 
+def test_eager_engine_builds_and_serves_like_apply():
+    """engine="eager" builds (K4 per layer); its frozen serving (the plan)
+    gives its own eager logits."""
+    model = build_model(DONNConfig(name="eager", n=32, depth=2,
+                                   distance=0.05, det_size=6, gamma=1.1,
+                                   codesign="qat", engine="eager",
+                                   use_pallas=True), device=CPU)
+    params = model.init(torch.Generator().manual_seed(0))
+    x = _digits(3)
+    want = model.apply(params, torch.from_numpy(x)).numpy()
+    got = InferenceEngine(freeze(model, params, device=CPU), buckets=(4,),
+                          device=CPU).infer(x)
+    assert _rel(got, want) <= RTOL
+
+
 def test_rng_apply_refused(qat_pair):
     tm, tp, _, _ = qat_pair[False]
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="DSE/codesign slice"):
         tm.apply(tp, torch.from_numpy(_digits(1)), rng=object())
 
 

@@ -41,10 +41,28 @@ script exits non-zero without the final line:
    ``serve_donn --train-steps 16`` at the config's width.
 6. cli     — runs ``repro_torch.launch.serve_donn.main`` once at the
    config's width.
+7. lm      — the LM serving slice with random parameters from seeded
+   generators on the card, TF32 off: ``repro_torch.launch.serve.main``
+   serves qwen1.5-4b (full width and depth, bf16 matmuls) at 8 slots, 24
+   requests, prompt 16, 32 new tokens, twice; a full-width depth-2 f32
+   copy holds one 16-token prefill against the CPU (SLICE_RTOL, argmax
+   equal) and 16 decode steps against that prefill on the card; K6 runs
+   through ``apply_rotary(use_pallas=True)`` on layer 0's q and k of a
+   batch-8, S=2048 prefill of the served parameters, held against the
+   flag off.  Then falcon-mamba-7b (full width, all 64 layers) is served
+   the same way and K7 is held against ``ssm._selective_scan`` on layer
+   0's mixer tensors (dt, x, B, C, A) of a batch-8, S=2048 prefill.  Each
+   model is freed before the next is built.
+
+Phase 3 also holds K5 complex_mul (32x200x200 x (200, 200)), K6 rope
+(the qwen1.5-4b prefill shape (160, 2048, 128), bf16 and f32) and K7
+selective_scan (B 8, S 2048, D 8192, N 16) against their plain versions,
+and their autograd Functions (_ComplexMul, _Rope) backward.
 
 Then one JSON line lists every kernel with its launches on the counted
-main-path windows (serving + training), its launches per training step on
-each engine, error and times, and the last line is the device record.
+windows (DONN serving + training, LM serving, the LM holds), its
+launches per training step on each engine and per LM window, error and
+times, and the last line is the device record.
 ``--profile FILE`` adds ``torch.profiler`` tables of PROFILE_BATCHES
 bucket-32 batches and of PROFILE_CHUNKS 8-step training chunks, with the
 device's busy time and idle share, printed and written to FILE (the
@@ -75,7 +93,13 @@ from repro_torch.core.train_utils import (  # noqa: E402
 )
 from repro_torch.data.synthetic import batch_iterator, synth_digits  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.launch import serve_donn  # noqa: E402
+from repro_torch.launch import serve, serve_donn  # noqa: E402
+from repro_torch.models import attention as lm_attn  # noqa: E402
+from repro_torch.models import get_config as lm_config  # noqa: E402
+from repro_torch.models import lm, ssm  # noqa: E402
+from repro_torch.models.layers import (  # noqa: E402
+    apply_norm, apply_rotary, embed_tokens, rope_angles,
+)
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.runtime.inference import (  # noqa: E402
     InferenceEngine, MicroBatcher, freeze,
@@ -87,7 +111,15 @@ from repro_torch.tree import tree_map  # noqa: E402
 # beside.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# H100 SXM: 16 special-function (ex2) results a clock per SM, 132 SMs, at
+# its 1.98 GHz maximum clock (Hopper architecture white paper): the rate
+# K7's exps are reckoned against beside its bytes.
+SFU_PER_S = 16 * 132 * 1.98e9
 KERNEL_RTOL = 1e-5  # max|kernel - plain| / max|plain|
+ROPE_F32_RTOL = 1e-6  # K6 in f32: one rounding apart from the plain version
+# K6 in bf16: per element within ref.rope_rounding_bound, 3 * 2^-8 *
+# (|x1 c| + |x2 s|): the plain version rounds each bf16 product and the
+# result, the kernel rounds once
 SLICE_RTOL = 1e-4  # logits on the card vs the CPU copy (cuFFT vs pocketfft)
 WINDOW_S = 3.0  # seconds of closed-loop serving/training per row, repeat
 REPEATS = 2
@@ -97,6 +129,11 @@ TRAIN_STEPS = 3  # counted optimizer steps per engine
 CHUNK = 8  # optimizer steps per make_train_chunk call (steps_per_call)
 GAMMA = 1.12  # donn-mnist-5l's gamma, K4's scalar
 SERVING_KERNELS = ("conj_phase_scale", "phase_tf_apply", "intensity_readout")
+LM_SERVE_FLAGS = ["--slots", "8", "--requests", "24", "--prompt-len", "16",
+                  "--max-new", "32", "--device", "cuda"]
+LM_HOLD_BATCH, LM_HOLD_SEQ = 8, 2048
+K6_SHAPE = (8 * 20, 2048, 128)  # qwen1.5-4b q of a batch-8, S=2048 prefill
+K7_SHAPE = (8, 2048, 8192, 16)  # B, S, D (falcon-mamba-7b d_inner), N
 
 KERNEL_META = {
     "conj_phase_scale": ("src/repro_torch/kernels/csrc/spectral_hop.cu",
@@ -107,6 +144,12 @@ KERNEL_META = {
                           "src/repro/kernels/intensity_readout.py:33"),
     "phase_apply": ("src/repro_torch/kernels/csrc/complex_mul.cu",
                     "src/repro/kernels/complex_mul.py:60"),
+    "complex_mul": ("src/repro_torch/kernels/csrc/complex_mul.cu",
+                    "src/repro/kernels/complex_mul.py:30"),
+    "rope": ("src/repro_torch/kernels/csrc/rope.cu",
+             "src/repro/kernels/rope.py:30"),
+    "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan.py:48"),
 }
 
 
@@ -158,10 +201,12 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
 
-def device_ms(fn, reps: int = 100) -> float:
+def device_ms(fn, reps: int = 100, warmup: int = 5) -> float:
     """Device time per call: the stream is held by a sleep kernel while
-    the host queues ``reps`` calls, so host overhead leaves no gaps."""
-    for _ in range(5):
+    the host queues ``reps`` calls, so host overhead leaves no gaps (for
+    a call of thousands of launches, such as K7's plain version, the host
+    outruns the sleep and the time includes its dispatch)."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -299,6 +344,9 @@ def phase_kernels(dev) -> dict:
         nbytes=B * n * n * 16 + n * n * 4,
         flops=B * n * n * 6 + n * n * 4,  # rotation; sincos + 2 per pixel
         library_ms=None)
+    rows.update(kernels_k5(dev, gen))
+    rows.update(kernels_k6(dev, gen))
+    rows.update(kernels_k7(dev, gen))
     for k, r in rows.items():
         t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / F32_FLOP_PER_S * 1e3
@@ -309,8 +357,131 @@ def phase_kernels(dev) -> dict:
         print(f"[kernels] {k}: {r['ms'] * 1e3:.2f} us/launch, plain "
               f"{r['plain_ms'] * 1e3:.2f} us, library {lib_txt}, bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: "
-              f"{r['nbytes'] / 1e6:.2f} MB)")
+              f"{r['nbytes'] / 1e6:.2f} MB, {r['flops'] / 1e9:.2f} GFLOP)")
+        if "exps" in r:
+            r["sfu_bound_ms"] = r["exps"] / SFU_PER_S * 1e3
+            print(f"[kernels] {k}: {r['exps'] / 1e9:.3f}e9 exps over the "
+                  f"SFU rate {SFU_PER_S / 1e12:.2f}e12/s: "
+                  f"{r['sfu_bound_ms'] * 1e3:.2f} us")
     return rows
+
+
+def kernels_k5(dev, gen) -> dict:
+    """K5 complex_mul against its plain version; ``a * b`` timed beside."""
+    B, n = 32, 200
+    errs = []
+    for case, shape in (("32x200x200 shared plane", (B, n, n)),
+                        ("odd 37x53", (5, 37, 53))):
+        a = _cfield(shape, gen, dev)
+        b = _cfield(shape[1:], gen, dev)
+        errs.append(_compare("complex_mul", case, ops.complex_mul_rows(a, b),
+                             ref.complex_mul_ref(a, b)))
+    as_ = [_cfield((B, n, n), gen, dev) for _ in range(8)]
+    b = _cfield((n, n), gen, dev)
+    lib_err = (as_[0] * b - ref.complex_mul_ref(as_[0], b)).abs().max().item()
+    print(f"[kernels] complex_mul library a * b (timed only, not the port): "
+          f"max_abs_err {lib_err:.3e} vs plain")
+    it = iter(range(10 ** 9))
+    return {"complex_mul": dict(
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: ops.complex_mul_rows(as_[next(it) % 8], b)),
+        plain_ms=device_ms(lambda: ref.complex_mul_ref(as_[next(it) % 8], b)),
+        library_ms=device_ms(lambda: as_[next(it) % 8] * b),
+        nbytes=B * n * n * 16 + n * n * 8, flops=B * n * n * 6)}
+
+
+def _hold_rope(what: str, got, want, x, cos, sin) -> float:
+    """K6 against its plain version on x (..., S, D) with cos/sin (S, D//2):
+    bf16 per element within ``ref.rope_rounding_bound``, f32 within
+    ROPE_F32_RTOL of the max."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"rope/{what}: bad output {tuple(got.shape)}")
+    err = (got - want).abs().max().item()
+    if x.dtype == torch.bfloat16:
+        bound = ref.rope_rounding_bound(x, cos, sin)
+        ratio = ((got - want).abs() / bound.clamp_min(1e-30)).max().item()
+        print(f"[kernels] rope {what}: max_abs_err {err:.3e}, worst "
+              f"|diff| / (3 * 2^-8 (|x1 c| + |x2 s|)) {ratio:.3f} (tol 1)")
+        if ratio > 1.0:
+            raise AssertionError(f"rope/{what}: outside the rounding bound")
+        return err
+    rel = err / want.abs().max().item()
+    print(f"[kernels] rope {what}: max_abs_err {err:.3e} rel {rel:.3e} "
+          f"(tol {ROPE_F32_RTOL:g})")
+    if rel > ROPE_F32_RTOL:
+        raise AssertionError(f"rope/{what}: {rel:.3e} > {ROPE_F32_RTOL:g}")
+    return err
+
+
+def kernels_k6(dev, gen) -> dict:
+    """K6 rope at the qwen1.5-4b prefill of 8 sequences: (8*20, 2048, 128)
+    in bf16 (the row timed) and f32, and an odd shape."""
+    BN, S, D = K6_SHAPE
+    errs, rows = [], {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for case, shape in (("odd (3, 37, 64)", (3, 37, 64)),
+                            ("qwen1.5-4b prefill", (BN, S, D))):
+            ang = torch.rand((shape[1], shape[2] // 2), generator=gen) * S
+            cos, sin = (f(ang).to(dev, dtype) for f in (torch.cos, torch.sin))
+            x = torch.randn(shape, generator=gen).to(dev, dtype)
+            errs.append(_hold_rope(f"{case} {str(dtype)[6:]}",
+                                   ops.rope_rows(x, cos, sin),
+                                   ref.rope_ref(x, cos, sin), x, cos, sin))
+        xs = [torch.randn((BN, S, D), generator=gen).to(dev, dtype)
+              for _ in range(2)]
+        it = iter(range(10 ** 9))
+        esize = xs[0].element_size()
+        row = dict(
+            ms=device_ms(lambda: ops.rope_rows(xs[next(it) % 2], cos, sin)),
+            plain_ms=device_ms(lambda: ref.rope_ref(xs[next(it) % 2], cos,
+                                                    sin), reps=20),
+            nbytes=2 * BN * S * D * esize + 2 * S * (D // 2) * esize,
+            flops=BN * S * D * 3, library_ms=None)
+        if dtype == torch.bfloat16:
+            rows["rope"] = row
+        else:
+            t_bytes = row["nbytes"] / HBM_BYTES_PER_S * 1e3
+            print(f"[kernels] rope f32 at the same shape: "
+                  f"{row['ms'] * 1e3:.2f} us/launch, plain "
+                  f"{row['plain_ms'] * 1e3:.2f} us, bound "
+                  f"{t_bytes * 1e3:.2f} us (bytes: {row['nbytes'] / 1e6:.2f} "
+                  f"MB)")
+    rows["rope"]["max_abs_err"] = max(errs)
+    return rows
+
+
+def _scan_inputs(B, S, D, N, gen, dev):
+    dt = 0.1 * torch.nn.functional.softplus(torch.randn((B, S, D),
+                                                        generator=gen))
+    x = torch.randn((B, S, D), generator=gen)
+    bs = torch.randn((B, S, N), generator=gen)
+    cs = torch.randn((B, S, N), generator=gen)
+    a = -torch.arange(1, N + 1, dtype=torch.float32).expand(D, N)
+    return [t.to(dev).contiguous() for t in (dt, x, bs, cs, a)]
+
+
+def kernels_k7(dev, gen) -> dict:
+    """K7 selective_scan against its plain version (the model's scan from
+    h = 0) at B 8, S 2048, D 8192, N 16 and a ragged D."""
+    errs = []
+    for case, shape in (("ragged D 203, N 16", (2, 37, 203, 16)),
+                        ("N 4", (2, 37, 64, 4))):
+        args = _scan_inputs(*shape, gen, dev)
+        errs.append(_compare("selective_scan", case, ops.selective_scan(*args),
+                             ref.selective_scan_ref(*args)))
+    B, S, D, N = K7_SHAPE
+    args = _scan_inputs(B, S, D, N, gen, dev)
+    errs.append(_compare("selective_scan", f"B {B}, S {S}, D {D}, N {N}",
+                         ops.selective_scan(*args),
+                         ref.selective_scan_ref(*args)))
+    return {"selective_scan": dict(
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: ops.selective_scan(*args), reps=10, warmup=2),
+        plain_ms=device_ms(lambda: ref.selective_scan_ref(*args), reps=2,
+                           warmup=1),
+        nbytes=3 * B * S * D * 4 + 2 * B * S * N * 4 + D * N * 4,
+        flops=B * S * D * N * 8, exps=B * S * D * N, library_ms=None)}
 
 
 def _compare_grads(what: str, got, want, rtol: float) -> float:
@@ -381,6 +552,33 @@ def phase_backward(dev) -> None:
         _compare_grads(f"[kernels] {name} backward ({what}) vs "
                        f"autograd of the plain version", grads[0], grads[1],
                        KERNEL_RTOL)
+
+    # K5 (d field, d plane) at 32x200x200; K6 (d x) at the qwen1.5-4b
+    # prefill shape in f32, so the comparison is not one of bf16 roundings
+    b = _cfield((n, n), gen, dev)
+    BN, S, D = K6_SHAPE
+    ang = torch.rand((S, D // 2), generator=gen) * 2048.0
+    cos, sin = torch.cos(ang).to(dev), torch.sin(ang).to(dev)
+    xr = torch.randn((BN, S, D), generator=gen).to(dev)
+    wr = torch.randn((BN, S, D), generator=gen).to(dev)
+    more = {
+        "_ComplexMul": ((x, b),
+                        lambda a, p: project(ops.complex_mul(a, p)),
+                        lambda a, p: project(ref.complex_mul_ref(a, p)),
+                        "d field, d plane"),
+        "_Rope": ((xr,),
+                  lambda a: (wr * ops.apply_rope(a, cos, sin)).sum(),
+                  lambda a: (wr * ref.rope_ref(a, cos, sin)).sum(),
+                  "d x"),
+    }
+    for name, (inputs, kern, plain, what) in more.items():
+        grads = []
+        for fn in (kern, plain):
+            args = [t.clone().requires_grad_(True) for t in inputs]
+            grads.append(torch.autograd.grad(fn(*args), args))
+        torch.cuda.synchronize()
+        _compare_grads(f"[kernels] {name} backward ({what}) vs autograd of "
+                       f"the plain version", grads[0], grads[1], KERNEL_RTOL)
 
 
 def _readout_einsum(u, masks):
@@ -693,11 +891,157 @@ def phase_cli() -> None:
         raise AssertionError("serve_donn served nothing")
 
 
+def _lm_serve(arch: str, runs: int = 2) -> dict:
+    """``serve.main`` on the card ``runs`` times with the launch counters
+    reset just before each; returns the served tokens and the launches."""
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    for i in range(runs):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        served = serve.main(["--arch", arch] + LM_SERVE_FLAGS)
+        torch.cuda.synchronize()
+        for k, v in ops.launch_counts().items():
+            launches[k] += v
+        if served != 24 * 32:
+            raise AssertionError(f"{arch}: served {served} tokens, not 768")
+    print(f"[lm] {arch} serving launches over {runs} runs: {launches} (the "
+          f"reference's served path reaches no Pallas kernel either)")
+    return launches
+
+
+def _hold_logits(what: str, got, want, rtol: float) -> None:
+    got, want = got.float().cpu(), want.float().cpu()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: bad logits {tuple(got.shape)}")
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    print(f"[lm] {what}: rel err {rel:.3e} (tol {rtol:g}), argmax equal "
+          f"{same}")
+    if rel > rtol or not same:
+        raise AssertionError(f"{what}: {rel:.3e} > {rtol:g} or argmax differs")
+
+
+def _free(*trees) -> None:
+    for t in trees:
+        t.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_lm(dev, smi: str, profile) -> dict:
+    """LM serving on the card: qwen1.5-4b (dense, K6 held on its q/k) and
+    falcon-mamba-7b (ssm, K7 held on its mixer tensors); returns the
+    launches of each counted window."""
+    print(f"[lm] torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32} (float32 matmuls in full "
+          f"precision); {smi}")
+    windows = {}
+    rng = np.random.default_rng(5)
+
+    # --- dense: serve at full width and depth
+    cfg = lm_config("qwen1.5-4b")
+    windows["lm_serve_dense"] = _lm_serve("qwen1.5-4b")
+
+    # --- f32 at full width, depth 2: the card against a CPU copy, and
+    # decode against prefill on the card
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype=torch.float32)
+    p2 = lm.init(cfg2, torch.Generator(device=dev).manual_seed(1))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 16)))
+    with torch.no_grad():
+        got = lm.logits_fn(p2, toks.to(dev), cfg2)
+        cpu = tree_map(lambda t: t.cpu(), p2)
+        _hold_logits("qwen1.5-4b f32 depth 2, 16-token prefill: card vs CPU",
+                     got, lm.logits_fn(cpu, toks, cfg2), SLICE_RTOL)
+        _free(cpu)
+        cache = lm.init_cache(cfg2, 1, 16, device=dev)
+        dec = [lm.decode_step(p2, cache, toks[:, t:t + 1].to(dev), t,
+                              cfg2)[0][:, 0] for t in range(16)]
+        _hold_logits("qwen1.5-4b f32 depth 2 on the card: 16 decode steps "
+                     "vs the prefill", torch.stack(dec, 1), got, SLICE_RTOL)
+    _free(p2, cache)
+
+    # --- K6 on the served parameters: layer 0's q and k of a batch-8,
+    # S=2048 prefill, through apply_rotary with the flag on and off
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         (LM_HOLD_BATCH, LM_HOLD_SEQ)))
+    with torch.no_grad():
+        layer0 = lm._layer(params["blocks"], 0)
+        h = apply_norm(layer0["ln1"],
+                       embed_tokens(params["embed"], toks.to(dev), cfg), cfg)
+        q, k, _ = lm_attn.qkv_proj(layer0["attn"], h, cfg)
+        cos, sin = rope_angles(cfg, torch.arange(LM_HOLD_SEQ, device=dev))
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        rotated = [apply_rotary(t, cos, sin, cfg, use_pallas=True)
+                   for t in (q, k)]
+        torch.cuda.synchronize()
+        windows["lm_hold_rope"] = ops.launch_counts()
+        for name, t, got in zip("qk", (q, k), rotated):
+            # (B, S, H, Dh) -> (B, H, S, Dh): the kernel's (..., S, D) rows,
+            # with cos/sin cast to the model's dtype as apply_rotary does
+            _hold_rope(f"apply_rotary(use_pallas=True) vs False on layer 0's "
+                       f"{name} {tuple(t.shape)}", got.transpose(1, 2),
+                       apply_rotary(t, cos, sin, cfg).transpose(1, 2),
+                       t.transpose(1, 2), cos.to(t.dtype), sin.to(t.dtype))
+    del layer0, h, q, k, rotated
+    if windows["lm_hold_rope"]["rope"] != 2:
+        raise AssertionError(f"K6 launches {windows['lm_hold_rope']}")
+    if profile:
+        cache = lm.init_cache(cfg, 8, 128, device=dev)
+        cur = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1))).to(dev)
+        pos = iter(range(10 ** 9))
+
+        def step():
+            with torch.no_grad():
+                lm.decode_step(params, cache, cur, next(pos) % 127,
+                               cfg)[0].argmax(-1).cpu()
+        for _ in range(3):
+            step()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        per_us = (time.perf_counter() - t0) / 10 * 1e6
+        _profile(step, 10, 1, "decode step", profile + ".lm", per_us)
+        _free(cache)
+    _free(params)
+
+    # --- ssm: serve at full width and depth, then K7 on layer 0's mixer
+    cfg = lm_config("falcon-mamba-7b")
+    windows["lm_serve_ssm"] = _lm_serve("falcon-mamba-7b")
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         (LM_HOLD_BATCH, LM_HOLD_SEQ)))
+    with torch.no_grad():
+        layer0 = lm._layer(params["blocks"], 0)
+        h = apply_norm(layer0["ln1"],
+                       embed_tokens(params["embed"], toks.to(dev), cfg), cfg)
+        xc, dt, bs, cs, a, _, _ = ssm.mamba_scan_inputs(layer0["mamba"], h,
+                                                        cfg)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        y = ops.selective_scan(dt, xc, bs, cs, a)
+        torch.cuda.synchronize()
+        windows["lm_hold_scan"] = ops.launch_counts()
+        h0 = torch.zeros((LM_HOLD_BATCH, cfg.d_inner, cfg.ssm_state),
+                         device=dev)
+        want, _ = ssm._selective_scan(dt, bs, cs, xc, a, h0, cfg.scan_chunk)
+        _compare("selective_scan", f"falcon-mamba-7b layer 0 mixer, batch "
+                 f"{LM_HOLD_BATCH}, S {LM_HOLD_SEQ}, D {cfg.d_inner}, N "
+                 f"{cfg.ssm_state}, vs ssm._selective_scan", y, want)
+        del layer0, h, xc, dt, bs, cs, a, y, want
+    if windows["lm_hold_scan"]["selective_scan"] != 1:
+        raise AssertionError(f"K7 launches {windows['lm_hold_scan']}")
+    _free(params)
+    return windows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="FILE", default=None,
                     help="write torch.profiler tables of the serving path "
-                         "(FILE) and a training chunk (FILE.train)")
+                         "(FILE), a training chunk (FILE.train) and a "
+                         "qwen1.5-4b decode step at 8 slots (FILE.lm)")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     smi = phase_device()
@@ -708,21 +1052,28 @@ def main(argv=None) -> int:
     launches = phase_slice(dev, smi, args.profile)
     train = phase_train(dev, smi, args.profile)
     phase_cli()
+    lm_windows = phase_lm(dev, smi, args.profile)
     kernels = []
     for name in ops.KERNELS:
         r = rows[name]
         source, replaces = KERNEL_META[name]
-        kernels.append({
+        lm_launches = {w: c[name] for w, c in lm_windows.items()}
+        row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[name] + train["counted"][name],
+            "launches": (launches[name] + train["counted"][name]
+                         + sum(lm_launches.values())),
             "serve_launches": launches[name],
             "train_launches": {eng: c[name]
                                for eng, c in train["per_step"].items()},
+            "lm_launches": lm_launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+        }
+        if "sfu_bound_ms" in r:
+            row["sfu_bound_ms"] = r["sfu_bound_ms"]
+        kernels.append(row)
     print(f"[done] {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,12 @@
 """Carry parameters over from the JAX package.
 
-``params_from_jax`` takes the JAX model's parameter pytree as nested
-dicts of numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX
-side) and returns the port's ``{"phase": {"layer_i": tensor}}`` on
-``device``.  It only walks dicts: nothing of JAX is imported.
+Both functions take a JAX model's parameter pytree as nested dicts of
+numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side) and
+return the same dicts of float32 tensors on ``device``:
+``params_from_jax`` a DONN's ``{"phase": {"layer_i": tensor}}``,
+``lm_params_from_jax`` an LM's ``{"embed", "final_norm", "blocks"}`` tree
+(stacked "layers" axis kept).  They only walk dicts: nothing of JAX is
+imported.
 """
 from __future__ import annotations
 
@@ -13,19 +16,30 @@ import torch
 from repro_torch.device import resolve_device
 
 
-def params_from_jax(tree, device=None) -> dict:
+def _float_tree(tree, dev):
     """Nested dicts of numpy arrays -> the same dicts of float32 tensors."""
-    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: _float_tree(v, dev) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.kind != "f":
+        raise TypeError(f"expected floating parameters, got {arr.dtype}")
+    return torch.from_numpy(np.array(arr, np.float32)).to(dev)
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        arr = np.asarray(node)
-        if arr.dtype.kind != "f":
-            raise TypeError(f"expected floating parameters, got {arr.dtype}")
-        return torch.from_numpy(np.array(arr, np.float32)).to(dev)
 
-    out = walk(tree)
+def params_from_jax(tree, device=None) -> dict:
+    """A JAX DONN parameter tree -> the port's, on ``device``."""
+    out = _float_tree(tree, resolve_device(device))
     if not isinstance(out, dict) or "phase" not in out:
         raise ValueError("expected a DONN parameter tree {'phase': {...}}")
+    return out
+
+
+def lm_params_from_jax(tree, device=None) -> dict:
+    """A JAX LM parameter tree (``repro.models.lm.init``) -> the port's
+    tree for ``repro_torch.models.lm``, on ``device``."""
+    out = _float_tree(tree, resolve_device(device))
+    missing = {"embed", "final_norm", "blocks"} - set(out)
+    if missing:
+        raise ValueError(f"expected an LM parameter tree; missing "
+                         f"{sorted(missing)}")
     return out

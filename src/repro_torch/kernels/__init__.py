@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels for the port's hot spots (K1-K4).
+"""Hand-written Hopper kernels for the port's hot spots (K1-K7).
 
 ``ops`` holds the wrappers (kernel on the card, plain version on the CPU),
 ``ref`` the plain PyTorch versions, ``build`` the nvcc build of

@@ -34,6 +34,8 @@ SOURCES = {
     "spectral_hop": "spectral_hop.cu",
     "complex_mul": "complex_mul.cu",
     "intensity_readout": "intensity_readout.cu",
+    "rope": "rope.cu",
+    "selective_scan": "selective_scan.cu",
 }
 HEADERS = ("common.cuh",)
 # no --use_fast_math: its __sincosf breaks the 1e-5 parity as |theta| grows

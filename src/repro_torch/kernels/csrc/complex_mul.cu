@@ -105,3 +105,53 @@ extern "C" int phase_apply(const void* u, const void* phi, void* out,
       static_cast<float2*>(out), fields, hw, gamma);
   return static_cast<int>(cudaGetLastError());
 }
+
+// K5 — complex_mul: the plain complex multiply, one (H, W) plane b shared by
+// every field of a.
+//
+// Replaces src/repro/kernels/complex_mul.py::complex_mul_pallas
+// (def :30, pallas_call :40), driven by ops.complex_mul.
+//
+//   out = a * b,  a: (B, H, W) complex64, b: (H, W) complex64
+//
+// The reference carries split real/imag planes; here both operands are
+// complex64 (interleaved re/im), like K1/K2.  Its custom VJP calls the
+// same kernel for da = g * conj(b) (the wrapper resolves the conjugate bit
+// of b before taking its pointer).  No caller in the model paths: it is
+// the ops entry point the reference exposes.
+//
+// Bound on the card: bytes (8 read + 8 written per element of a, plus the
+// shared plane once).  Design as K4: one thread per pixel of a field,
+// float2 accesses, the plane's value loaded once per thread and reused for
+// kComplexMulFieldsPerThread fields (grid y strides the fields).  Operand
+// order of _complex_mul_kernel: re = ar*br - ai*bi, im = ar*bi + ai*br.
+constexpr int64_t kComplexMulFieldsPerThread = 4;
+
+__global__ void complex_mul_kernel(const float2* __restrict__ a,
+                                   const float2* __restrict__ b,
+                                   float2* __restrict__ out, int64_t fields,
+                                   int64_t hw) {
+  const int64_t pix = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (pix >= hw) return;
+  const float2 w = b[pix];
+  for (int64_t f = blockIdx.y; f < fields; f += gridDim.y) {
+    const int64_t i = f * hw + pix;
+    const float2 v = a[i];
+    out[i] = make_float2(v.x * w.x - v.y * w.y, v.x * w.y + v.y * w.x);
+  }
+}
+
+extern "C" int complex_mul(const void* a, const void* b, void* out,
+                           int64_t fields, int64_t hw, void* stream,
+                           int device) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  if (fields == 0 || hw == 0) return 0;
+  const int64_t rows = (fields + kComplexMulFieldsPerThread - 1) /
+                       kComplexMulFieldsPerThread;
+  complex_mul_kernel<<<elementwise_grid(hw, rows), kElementwiseThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(a), static_cast<const float2*>(b),
+      static_cast<float2*>(out), fields, hw);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,4 +1,4 @@
-"""Wrappers around the port's hand-written Hopper kernels (K1-K4).
+"""Wrappers around the port's hand-written Hopper kernels (K1-K7).
 
 The public functions keep the JAX package's plane-stack contract
 (``repro.kernels.ops``): ``theta``/``amp`` are one (H, W) plane shared by
@@ -11,11 +11,15 @@ Dispatch is by the tensor's device, never by a try: on a CUDA tensor the
 wrapper launches its kernel (building it at first use) or raises; on a CPU
 tensor it runs the plain PyTorch version in ``ref``, which exists for the
 tests.  Planes in bf16 storage are upcast to f32 by the callers before
-they get here.
+they get here.  K5 (``complex_mul``), K6 (``apply_rope``) and K7
+(``selective_scan``) keep the shapes of the reference's public wrappers:
+complex64 fields for K5 (the reference's split planes interleaved), x's
+dtype (f32 or bf16) for K6, float32 for K7.
 
 Gradients: each public function runs through a ``torch.autograd.Function``
 with the reference's custom VJP (``_PhaseTFApply``, ``_FusedHop``,
-``_Readout``, ``_PhaseApply``).  Their forward and backward dispatch by
+``_Readout``, ``_PhaseApply``, ``_ComplexMul``, ``_Rope``); K7 is forward
+only, as in the reference.  Their forward and backward dispatch by
 device like the raw wrappers, so on the card the backward launches the
 kernels (K2 for the TF multiply and the hop, K4 for the eager
 modulation) and on the CPU it runs the same formulas on the plain
@@ -23,8 +27,9 @@ versions.  PyTorch's gradient of a real loss with respect to a complex
 tensor is dL/dRe + j dL/dIm, the reference's split-plane cotangent
 (g_r, g_i), so the formulas carry over unchanged.  The raw wrappers
 (``conj_phase_scale``, ``phase_tf_apply_planes``,
-``intensity_readout_rows``, ``phase_apply_rows``) record no gradient: on
-the card they raise when grad mode is on and an input requires grad.
+``intensity_readout_rows``, ``phase_apply_rows``, ``complex_mul_rows``,
+``rope_rows``) and ``selective_scan`` record no gradient: on the card they
+raise when grad mode is on and an input requires grad.
 
 Every launch adds one to ``LAUNCHES[name]`` — the count that shows a run
 really went through the kernels (``reset_launch_counts`` /
@@ -40,7 +45,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 KERNELS = ("conj_phase_scale", "phase_tf_apply", "intensity_readout",
-           "phase_apply")
+           "phase_apply", "complex_mul", "rope", "selective_scan")
 LAUNCHES = {k: 0 for k in KERNELS}
 _COUNT_LOCK = threading.Lock()  # the serving worker thread launches too
 
@@ -195,6 +200,95 @@ def phase_apply_rows(u, phi, gamma: float):
     return out
 
 
+def complex_mul_rows(a, b):
+    """K5: a * b; (B, H, W) complex64 fields, one (H, W) complex64 plane."""
+    if a.dtype != torch.complex64 or b.dtype != torch.complex64:
+        raise TypeError(f"complex_mul: needs complex64, got {a.dtype} and "
+                        f"{b.dtype}")
+    if a.dim() != 3 or b.dim() != 2 or a.shape[1:] != b.shape:
+        raise ValueError(f"complex_mul: fields {tuple(a.shape)} vs plane "
+                         f"{tuple(b.shape)}")
+    if not _on_card("complex_mul", a, b):
+        return ref.complex_mul_ref(a, b)
+    a, b = _dense(a), _dense(b)
+    out = torch.empty_like(a)
+    lib = build.library("complex_mul")
+    build.check(lib, lib.complex_mul(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
+        a.shape[1] * a.shape[2], _stream(a.device), a.get_device(),
+    ), "complex_mul")
+    _count("complex_mul")
+    return out
+
+
+_ROPE_LAUNCHERS = {torch.float32: "rope_f32", torch.bfloat16: "rope_bf16"}
+
+
+def rope_rows(x, cos, sin):
+    """K6: rotate-half RoPE; x (BN, S, D), cos/sin (S, D//2), one dtype
+    (float32 or bfloat16)."""
+    if x.dtype not in _ROPE_LAUNCHERS or cos.dtype != x.dtype \
+            or sin.dtype != x.dtype:
+        raise TypeError(
+            f"rope: x, cos and sin must share float32 or bfloat16, got "
+            f"{x.dtype}, {cos.dtype}, {sin.dtype}"
+        )
+    if x.dim() != 3 or x.shape[-1] % 2 or cos.shape != sin.shape \
+            or tuple(cos.shape) != (x.shape[1], x.shape[2] // 2):
+        raise ValueError(f"rope: x {tuple(x.shape)} vs cos/sin "
+                         f"{tuple(cos.shape)}/{tuple(sin.shape)}")
+    if not _on_card("rope", x, cos, sin):
+        return ref.rope_ref(x, cos, sin)
+    x, cos, sin = _dense(x), _dense(cos), _dense(sin)
+    out = torch.empty_like(x)
+    BN, S, D = x.shape
+    lib = build.library("rope")
+    launch = getattr(lib, _ROPE_LAUNCHERS[x.dtype])
+    build.check(lib, launch(
+        x.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+        BN * S, S, D // 2, _stream(x.device), x.get_device(),
+    ), "rope")
+    _count("rope")
+    return out
+
+
+def selective_scan(dt, x, bs, cs, a):
+    """K7: the mamba-1 scan forward from h = 0 (``ops.selective_scan``).
+
+    dt/x (B, S, D); bs/cs (B, S, N); a (D, N) -> y (B, S, D) float32.
+    Inputs are taken as float32, as the reference's wrapper casts them.
+    Forward only: on the card it raises when grad mode is on and an input
+    requires grad.  D needs no padding (the kernel masks its edge); N is at
+    most 32 on the card.
+    """
+    B, S, D = x.shape
+    N = bs.shape[-1]
+    if dt.shape != x.shape or bs.shape != (B, S, N) or cs.shape != bs.shape \
+            or a.shape != (D, N):
+        raise ValueError(
+            f"selective_scan: dt {tuple(dt.shape)}, x {tuple(x.shape)}, bs "
+            f"{tuple(bs.shape)}, cs {tuple(cs.shape)}, a {tuple(a.shape)}"
+        )
+    if not _on_card("selective_scan", dt, x, bs, cs, a):
+        return ref.selective_scan_ref(dt, x, bs, cs, a)
+    if N > 32 or B > 65535:
+        raise ValueError(f"selective_scan: the kernel takes N <= 32 and "
+                         f"B <= 65535, got N={N}, B={B}")
+    dt, x, bs, cs, a = (_dense(t.float()) for t in (dt, x, bs, cs, a))
+    y = torch.empty((B, S, D), dtype=torch.float32, device=x.device)
+    lib = build.library("selective_scan")
+    build.check(lib, lib.selective_scan(
+        dt.data_ptr(), x.data_ptr(), bs.data_ptr(), cs.data_ptr(),
+        a.data_ptr(), y.data_ptr(), B, S, D, N, _stream(x.device),
+        x.get_device(),
+    ), "selective_scan")
+    _count("selective_scan")
+    return y
+
+
+selective_scan_ref = ref.selective_scan_ref
+
+
 # --------------------------------------------------------------------------
 # autograd Functions: the reference's custom VJPs (repro/kernels/ops.py)
 # --------------------------------------------------------------------------
@@ -306,6 +400,49 @@ class _PhaseApply(torch.autograd.Function):
         return du, dphi, None
 
 
+class _ComplexMul(torch.autograd.Function):
+    """K5 with the VJP of ``ops.py:69-76``: da = K5(g, conj(b)),
+    db = sum_B g * conj(a)."""
+
+    @staticmethod
+    def forward(a, b):
+        return complex_mul_rows(a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = complex_mul_rows(g, b.conj())
+        if ctx.needs_input_grad[1]:
+            db = (g * a.conj()).sum(dim=0)
+        return da, db
+
+
+class _Rope(torch.autograd.Function):
+    """K6 with the VJP of ``ops.py:464-466``: dx = K6(g, cos, -sin), a
+    rotation by -theta; cos and sin get no cotangent."""
+
+    @staticmethod
+    def forward(x3, cos, sin):
+        return rope_rows(x3, cos, sin)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, cos, sin = inputs
+        ctx.save_for_backward(cos, sin)
+
+    @staticmethod
+    def backward(ctx, g):
+        cos, sin = ctx.saved_tensors
+        dx = rope_rows(g, cos, -sin) if ctx.needs_input_grad[0] else None
+        return dx, None, None
+
+
 # --------------------------------------------------------------------------
 # plane-stack contract (repro.kernels.ops)
 # --------------------------------------------------------------------------
@@ -405,3 +542,30 @@ def phase_apply(u, phi, gamma: float = 1.0):
         )
     out = _PhaseApply.apply(u.reshape(-1, H, W), phi, float(gamma))
     return out.reshape(u.shape)
+
+
+def complex_mul(a, b):
+    """a * b through K5 (``ops.complex_mul``'s contract, complex64).
+
+    a: (B, H, W) fields or one (H, W) field; b: one (H, W) plane shared by
+    every field.
+    """
+    squeeze = a.dim() == 2
+    out = _ComplexMul.apply(a[None] if squeeze else a, b)
+    return out[0] if squeeze else out
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., S, D) rotate-half RoPE with cos/sin (S, D//2) through K6.
+
+    x, cos and sin share one dtype (float32 or bfloat16), as
+    ``models.layers.apply_rotary`` casts them.  On the card the kernel
+    computes in float32 and rounds once, where the plain version rounds
+    each bf16 product: in bf16 the two agree within
+    ``ref.rope_rounding_bound`` (3 * 2^-8 * (|x1 c| + |x2 s|) per
+    element), in float32 within 1e-6 of the max.
+    """
+    lead = x.shape[:-2]
+    S, D = x.shape[-2:]
+    out = _Rope.apply(x.reshape((-1, S, D)), cos, sin)
+    return out.reshape(tuple(lead) + (S, D))

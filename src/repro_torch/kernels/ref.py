@@ -1,11 +1,13 @@
 """Plain PyTorch versions of the port's hand-written kernels.
 
-Each function computes exactly what its CUDA kernel computes, with the
-reference Pallas kernel's operand order, on the plane-major layout the
+Each function computes what its CUDA kernel computes, with the reference
+Pallas kernel's operand order (K6 in bf16 rounds after each product,
+where the kernel rounds once), on the plane-major layout the
 wrappers in ``ops`` hand to the kernels: ``x`` is (P*nb, H, W) complex64,
 ``theta``/``amp`` are (P, H, W) float32 and plane p applies to the slab
 ``x[p*nb:(p+1)*nb]``; K4 takes (B, H, W) fields and one shared (H, W)
-phase plane.  The wrappers run these for tensors on the CPU (the tests);
+phase plane; K5-K7 take the shapes of their public wrappers.  The
+wrappers run these for tensors on the CPU (the tests);
 ``chip_smoke.py`` runs them on the card to hold each kernel against them.
 Nothing on the serving or training path calls them for a CUDA tensor.
 """
@@ -47,3 +49,50 @@ def intensity_readout_ref(u, masks):
     """|u|^2 pooled per detector region: (B,H,W)x(C,H,W) -> (B,C) (K3)."""
     inten = u.real * u.real + u.imag * u.imag
     return torch.einsum("bhw,chw->bc", inten, masks)
+
+
+def complex_mul_ref(a, b):
+    """a * b, one (H, W) plane b for every field of a (B, H, W) (K5)."""
+    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
+    return torch.complex(ar * br - ai * bi, ar * bi + ai * br)
+
+
+def rope_ref(x, cos, sin):
+    """Rotate-half RoPE in x's dtype, the Pallas kernel's body (K6):
+    x (BN, S, D), cos/sin (S, D//2)."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def rope_rounding_bound(x, cos, sin):
+    """Per element, how far K6 in bf16 may lie from ``rope_ref``.
+
+    The plain version rounds x1*c and x2*s to bf16 and then their
+    difference (sum); the kernel computes exactly in f32 and rounds once.
+    Two half-ulp roundings of the products and one of each result give
+    |kernel - plain| <= 3 * 2^-8 * (|x1 c| + |x2 s|) for the first half
+    (|x2 c| + |x1 s| for the second); the f32 rounding inside the kernel
+    adds under 2^-23 of that.  x (..., S, D), cos/sin (S, D//2) in x's
+    dtype; returns float32 of x's shape.
+    """
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    c, s = cos.float(), sin.float()
+    first = (x1 * c).abs() + (x2 * s).abs()
+    second = (x2 * c).abs() + (x1 * s).abs()
+    return 3.0 * 2.0 ** -8 * torch.cat([first, second], dim=-1)
+
+
+def selective_scan_ref(dt, x, bs, cs, a):
+    """The mamba-1 scan forward from h = 0 (K7): the model's chunked scan
+    (``repro_torch.models.ssm._selective_scan``) at chunk 64, in float32,
+    as the reference's ``ops.selective_scan_ref``."""
+    from repro_torch.models.ssm import _selective_scan
+
+    B, S, D = x.shape
+    h0 = torch.zeros((B, D, a.shape[-1]), dtype=torch.float32,
+                     device=x.device)
+    y, _ = _selective_scan(dt.float(), bs.float(), cs.float(), x.float(),
+                           a.float(), h0, chunk=64)
+    return y

@@ -1,1 +1,1 @@
-"""Launchers of the port."""
+"""Launchers of the port: DONN serving (`serve_donn`) and LM serving (`serve`)."""

@@ -1,0 +1,126 @@
+"""LM architecture configuration and registry (port of ``repro.models.config``).
+
+``LMConfig`` keeps the reference's fields, names and defaults; ``dtype`` is
+a torch dtype (default ``torch.bfloat16``), the type every matmul runs in
+while parameters stay float32.  The registry is a plain dict filled from
+``repro_torch.configs`` (one module per architecture, as in the JAX
+package).  This slice serves the dense and ssm families; the moe, vlm,
+audio and hybrid architectures are known by name and raise
+``NotImplementedError`` until their slice (ROADMAP queue 1, step 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+DENSE, MOE, VLM, AUDIO, SSM, HYBRID = (
+    "dense", "moe", "vlm", "audio", "ssm", "hybrid",
+)
+PORTED_FAMILIES = (DENSE, SSM)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """Architecture description covering all six families of the reference."""
+
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int  # 0 for attention-free (ssm)
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0  # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    mlp: str = "swiglu"  # swiglu | gelu | geglu
+    norm: str = "rms"  # rms | ln
+    rope_theta: float = 1e4
+    partial_rotary: float = 1.0  # glm4: 0.5
+    tie_embeddings: bool = False
+    # --- attention window (0 = full causal) ---
+    window: int = 0
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 2
+    expert_d_ff: int = 0
+    dense_residual_ff: int = 0
+    capacity_factor: float = 1.25
+    moe_group: int = 0
+    # --- VLM (cross-attention) ---
+    cross_attn_period: int = 0
+    vision_seq: int = 0
+    # --- SSM (mamba1) ---
+    ssm_state: int = 0
+    d_inner: int = 0
+    d_conv: int = 4
+    dt_rank: int = 0
+    # --- hybrid (recurrentgemma) ---
+    block_pattern: tuple = ()
+    lru_width: int = 0
+    logit_softcap: float = 0.0
+    # --- numerics ---
+    norm_eps: float = 1e-6
+    dtype: Any = torch.bfloat16
+    # --- runtime hints ---
+    attn_chunk: int = 1024  # KV-chunk for online-softmax attention
+    attn_p_bf16: bool = False  # softmax probs in bf16 for the PV product
+    scan_chunk: int = 128  # recurrence chunk for ssm/rglru
+    remat: bool = True  # read by the training slice; serving ignores it
+
+    @property
+    def head_dim(self) -> int:
+        if self.d_head:
+            return self.d_head
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == SSM
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.family in (SSM, HYBRID) or self.window > 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (input-shape) cell of the reference's dry-run matrix."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+LM_SHAPES = (
+    ShapeCell("train_4k", 4096, 256, "train"),
+    ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    ShapeCell("decode_32k", 32768, 128, "decode"),
+    ShapeCell("long_500k", 524288, 1, "decode"),
+)
+
+
+def get_config(name: str, smoke: bool = False) -> LMConfig:
+    """The registered FULL (or SMOKE) config of an architecture id."""
+    from repro_torch.configs import LM_CONFIGS, LM_PENDING
+
+    if name in LM_PENDING:
+        raise NotImplementedError(
+            f"{name} is a {LM_PENDING[name]} architecture; the port serves "
+            f"the dense and ssm families so far ({LM_PENDING[name]} comes "
+            "with its slice, ROADMAP queue 1 step 13)"
+        )
+    if name not in LM_CONFIGS:
+        raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
+    full, smoke_cfg = LM_CONFIGS[name]
+    return smoke_cfg if smoke else full
+
+
+def list_archs() -> list[str]:
+    """The architectures the port can build."""
+    from repro_torch.configs import LM_CONFIGS
+
+    return sorted(LM_CONFIGS)

@@ -1,0 +1,125 @@
+"""Mamba-1 selective-SSM block (falcon-mamba-7b), port of ``repro.models.ssm``.
+
+Prefill runs the reference's chunked sequential scan (``_selective_scan``)
+step by step in torch ops: the same padding to a chunk multiple and the
+same per-step discretization ``exp(dt A)``, ``dt x B``; the
+(B, S, d_inner, state) tensor is never materialized.  Decode keeps
+(conv_state, ssm_state) and advances one step.  As in the reference, the
+served block runs this plain scan; the hand-written K7 kernel
+(``kernels.ops.selective_scan``) is held against it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import LMConfig
+from repro_torch.nn import ParamSpec
+
+
+def mamba_spec(cfg: LMConfig):
+    d, di, st, dr, dc = (
+        cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.d_conv,
+    )
+    f32 = torch.float32
+    return {
+        "in_proj": ParamSpec((d, 2 * di), f32, ("embed", "mlp")),
+        "conv_w": ParamSpec((dc, di), f32, (None, "mlp"), init="normal",
+                            scale=0.5),
+        "conv_b": ParamSpec((di,), f32, ("mlp",), init="zeros"),
+        "x_proj": ParamSpec((di, dr + 2 * st), f32, ("mlp", None)),
+        "dt_w": ParamSpec((dr, di), f32, (None, "mlp")),
+        "dt_b": ParamSpec((di,), f32, ("mlp",), init="normal", scale=0.1),
+        "A_log": ParamSpec((di, st), f32, ("mlp", None), init="s4d_a_log"),
+        "D": ParamSpec((di,), f32, ("mlp",), init="ones"),
+        "out_proj": ParamSpec((di, d), f32, ("mlp", "embed")),
+    }
+
+
+def _causal_conv(x, w, b, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv over S. x: (B, S, di), w: (dc, di).
+
+    If ``state`` (B, dc-1, di) is given (decode), it prefixes x.
+    Returns (y, new_state).
+    """
+    dc = w.shape[0]
+    if state is not None:
+        xx = torch.cat([state.to(x.dtype), x], dim=1)
+    else:
+        xx = F.pad(x, (0, 0, dc - 1, 0))
+    S = x.shape[1]
+    y = sum(xx[:, i:i + S, :] * w[i].to(x.dtype) for i in range(dc))
+    new_state = xx[:, -(dc - 1):, :] if dc > 1 else None
+    return y + b.to(x.dtype), new_state
+
+
+def _selective_scan(dt, Bs, Cs, xc, A, h0, chunk: int):
+    """h_t = exp(dt A) h_{t-1} + dt B_t x_t ;  y_t = (C_t . h_t).
+
+    dt, xc: (B, S, di); Bs, Cs: (B, S, st); A: (di, st); h0: (B, di, st).
+    Returns (y (B, S, di) float32, h_final).
+    """
+    B, S, di = xc.shape
+    chunk = max(1, min(chunk, S))
+    pad = (-S) % chunk
+    if pad:  # padded steps have dt = 0: exp(0) = 1 keeps h unchanged
+        dt, xc, Bs, Cs = (F.pad(a, (0, 0, 0, pad)) for a in (dt, xc, Bs, Cs))
+    h = h0
+    ys = []
+    for t in range(S + pad):
+        dt_t, x_t = dt[:, t], xc[:, t]
+        dA = torch.exp(dt_t[..., None] * A)  # (B, di, st)
+        h = dA * h + (dt_t * x_t)[..., None] * Bs[:, t, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, Cs[:, t]))
+    y = torch.stack(ys, dim=1)[:, :S]
+    return y, h
+
+
+def mamba_scan_inputs(p, x, cfg: LMConfig,
+                      conv_state: Optional[torch.Tensor] = None):
+    """The block up to its scan: (xc, dt, B, C, A, z, new_conv_state).
+
+    xc, dt (B, S, di) and B, C (B, S, st) are float32, A = -exp(A_log)
+    (di, st); z is the gate half of the input projection.
+    """
+    di, st, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    dt_ = cfg.dtype
+    xz = x @ p["in_proj"].to(dt_)
+    x_in, z = xz[..., :di], xz[..., di:]
+    y_conv, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"],
+                                    state=conv_state)
+    xc = F.silu(y_conv).float()
+    proj = xc.to(dt_) @ p["x_proj"].to(dt_)
+    dt_low = proj[..., :dr].float()
+    B_ssm = proj[..., dr:dr + st].float()
+    C_ssm = proj[..., dr + st:].float()
+    dt = F.softplus(dt_low @ p["dt_w"].float() + p["dt_b"])
+    A = -torch.exp(p["A_log"])  # (di, st)
+    return xc, dt, B_ssm, C_ssm, A, z, new_conv
+
+
+def apply_mamba(
+    p,
+    x,
+    cfg: LMConfig,
+    conv_state: Optional[torch.Tensor] = None,
+    ssm_state: Optional[torch.Tensor] = None,
+):
+    """x: (B, S, d).  Returns (out, (new_conv_state, new_ssm_state)).
+
+    Pass states for incremental decode (S may be 1); states are None for
+    prefill (zero-initialized here).
+    """
+    B = x.shape[0]
+    xc, dt, B_ssm, C_ssm, A, z, new_conv = mamba_scan_inputs(
+        p, x, cfg, conv_state)
+    h0 = (ssm_state if ssm_state is not None
+          else torch.zeros((B, cfg.d_inner, cfg.ssm_state),
+                           dtype=torch.float32, device=x.device))
+    y, h = _selective_scan(dt, B_ssm, C_ssm, xc, A, h0, cfg.scan_chunk)
+    y = y + p["D"] * xc
+    y = y.to(cfg.dtype) * F.silu(z)
+    out = y @ p["out_proj"].to(cfg.dtype)
+    return out, (new_conv, h)

@@ -1,0 +1,85 @@
+"""Minimal functional parameter system (the LM part of ``repro.nn.module``).
+
+Parameters are nested dicts of tensors.  Every model exposes
+``param_specs(cfg) -> tree of ParamSpec`` (shape, dtype, logical axes,
+initializer) and ``init_params`` materializes a spec tree from a
+``torch.Generator``: leaves are drawn in sorted-key order (the order of
+``jax.tree``), each directly on the generator's device.  The generator
+gives other numbers than the reference's threefry keys, so parity tests
+carry JAX parameters over with ``repro_torch.convert.lm_params_from_jax``.
+
+The logical axes are kept for the multi-device slice; its sharding
+helpers are not ported yet, nor the initializers of families still to
+port (``uniform_phase``, ``rglru_lambda``), which raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Shape/dtype/init/logical-axes description of one parameter."""
+
+    shape: tuple
+    dtype: Any = torch.float32
+    logical_axes: tuple = ()
+    init: str = "fan_in"  # fan_in | normal | zeros | ones | embed | s4d_a_log
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if self.logical_axes and len(self.logical_axes) != len(self.shape):
+            raise ValueError(
+                f"logical_axes {self.logical_axes} rank != shape {self.shape}"
+            )
+
+
+def _normal(spec: ParamSpec, gen: torch.Generator, std: float):
+    x = torch.randn(spec.shape, generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return x.mul_(std).to(spec.dtype)
+
+
+def _initialize(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    dev = gen.device
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+    if spec.init in ("normal", "embed"):
+        return _normal(spec, gen, spec.scale)
+    if spec.init == "fan_in":
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        return _normal(spec, gen, spec.scale / math.sqrt(max(fan_in, 1)))
+    if spec.init == "s4d_a_log":  # mamba A_log: log(1..state) per channel row
+        state = spec.shape[-1]
+        row = torch.log(torch.arange(1, state + 1, dtype=torch.float32,
+                                     device=dev))
+        return row.expand(spec.shape).to(spec.dtype).contiguous()
+    raise ValueError(f"unknown init {spec.init!r}")
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def init_params(specs, gen: torch.Generator):
+    """Materialize a ParamSpec tree into tensors on ``gen``'s device."""
+    return tree_unflatten(specs, [_initialize(s, gen)
+                                  for s in tree_leaves(specs)])
+
+
+def param_count(tree) -> int:
+    return sum(math.prod(x.shape) if is_spec(x) else x.numel()
+               for x in tree_leaves(tree))
+
+
+def cast_tree(tree, dtype):
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)

@@ -1,1 +1,1 @@
-"""Serving runtime of the port (frozen DONN inference)."""
+"""Serving runtime of the port: frozen DONN inference and the LM steps."""

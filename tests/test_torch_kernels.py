@@ -8,7 +8,8 @@ from a seeded numpy generator and feed both sides.
 Tolerance: max|port - jax| <= 1e-5 * max|jax| (f32).  Measured with the
 CPU builds of torch 2.13 and jax 0.9: K2 agrees to <= 1.3e-7, the K1 hop
 (two FFTs on each side) to <= 4.0e-7, K3 (sums in another order) to
-<= 7.8e-7.
+<= 7.8e-7, K5 to 5.4e-8, K6 to 9.3e-8 in f32 and to the bit in bf16
+(both sides round after each bf16 product), K7 to 1.4e-7.
 
 The VJP tests hold each autograd Function (on CPU tensors it runs the
 plain versions through the same backward formulas that launch the
@@ -190,7 +191,15 @@ def test_exported_signatures_read_the_c_prototypes():
         "intensity_readout": {
             "intensity_readout": ([P, P, P, P, I64, I64, INT, P, INT], INT),
             "readout_tile_pixels": ([], INT)},
+        "rope": {
+            "rope_f32": ([P, P, P, P, I64, I64, I64, P, INT], INT),
+            "rope_bf16": ([P, P, P, P, I64, I64, I64, P, INT], INT)},
+        "selective_scan": {
+            "selective_scan": ([P, P, P, P, P, P, I64, I64, I64, I64, P, INT],
+                               INT)},
     }
+    launchers["complex_mul"]["complex_mul"] = ([P, P, P, I64, I64, P, INT],
+                                               INT)
     assert set(launchers) == set(kbuild.SOURCES)
     for name, want in launchers.items():
         got = kbuild.source_signatures(name)
@@ -239,11 +248,22 @@ def test_card_wrappers_pass_the_launchers_their_c_arguments(monkeypatch):
     kops.phase_tf_apply_planes(x, th, th, 2)
     kops.intensity_readout_rows(x, torch.zeros((4, 9, 11)))
     kops.phase_apply_rows(x, th[0], 1.12)
+    kops.complex_mul_rows(x, x[0])
+    for dtype in (torch.float32, torch.bfloat16):
+        r = torch.zeros((4, 9, 12), dtype=dtype)
+        kops.rope_rows(r, r[0, :, :6], r[0, :, :6])
+    kops.selective_scan(torch.zeros((2, 5, 7)), torch.zeros((2, 5, 7)),
+                        torch.zeros((2, 5, 3)), torch.zeros((2, 5, 3)),
+                        torch.zeros((7, 3)))
     assert libs["spectral_hop"].calls == ["conj_phase_scale"]
-    assert libs["complex_mul"].calls == ["phase_tf_apply", "phase_apply"]
+    assert libs["complex_mul"].calls == ["phase_tf_apply", "phase_apply",
+                                         "complex_mul"]
     assert libs["intensity_readout"].calls == ["readout_tile_pixels",
                                                "intensity_readout"]
-    assert kops.launch_counts() == dict.fromkeys(kops.KERNELS, 1)
+    assert libs["rope"].calls == ["rope_f32", "rope_bf16"]
+    assert libs["selective_scan"].calls == ["selective_scan"]
+    assert kops.launch_counts() == {**dict.fromkeys(kops.KERNELS, 1),
+                                    "rope": 2}
     kops.reset_launch_counts()
 
 
@@ -256,6 +276,10 @@ def test_cpu_path_launches_nothing():
     kops.phase_tf_apply(x, th, th + 1)
     kops.intensity_readout(x, torch.ones((3, 8, 8)))
     kops.phase_apply(x, th, 1.12)
+    kops.complex_mul(x, x[0])
+    kops.apply_rope(th[None], th[:, :4], th[:, :4])
+    kops.selective_scan(th[None], th[None], th[None, :, :2], th[None, :, :2],
+                        th[:, :2])
     assert kops.launch_counts() == dict.fromkeys(kops.KERNELS, 0)
 
 
@@ -418,3 +442,116 @@ def test_backward_skips_input_gradients_nobody_needs():
         assert len(calls) == 2  # K2 twice for dx
     finally:
         kops.phase_tf_apply_planes = real
+
+
+
+# ------------------------------------------------------------ K5-K7
+@pytest.mark.parametrize("ashape", [(4, 16, 16), (3, 37, 53), (37, 53)])
+def test_complex_mul_matches_jax(ashape):
+    """K5 on complex64 tensors against the reference's split planes; a 2-D
+    ``a`` is one field (the reference's squeeze)."""
+    rng = np.random.default_rng(20)
+    a = _field(rng, ashape)
+    b = _field(rng, ashape[-2:])
+    want = _jax_complex(jops.complex_mul(*_jax_split(a), *_jax_split(b)))
+    got = kops.complex_mul(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.shape == ashape
+    assert _rel(got.numpy(), want) <= RTOL
+
+
+@pytest.mark.parametrize("ashape", [(4, 16, 20), (16, 20)])
+def test_complex_mul_vjp_matches_jax(ashape):
+    """da = g conj(b), db = sum_B g conj(a), against ``jax.vjp`` of the
+    reference wrapper; PyTorch's complex gradient of a real projection is
+    the reference's split-plane cotangent."""
+    rng = np.random.default_rng(21)
+    a, g = _field(rng, ashape), _field(rng, ashape)
+    b = _field(rng, ashape[-2:])
+    _, vjp = jax.vjp(jops.complex_mul, *_jax_split(a), *_jax_split(b))
+    dar, dai, dbr, dbi = vjp(_jax_split(g))
+    at = torch.from_numpy(a).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    out = kops.complex_mul(at, bt)
+    gt = torch.from_numpy(g)
+    loss = (gt.real * out.real + gt.imag * out.imag).sum()
+    da, db = torch.autograd.grad(loss, [at, bt])
+    assert _rel(da.numpy(), _jax_complex((dar, dai))) <= RTOL
+    assert _rel(db.numpy(), _jax_complex((dbr, dbi))) <= RTOL
+
+
+def _rope_case(rng, shape, dtype):
+    x = rng.standard_normal(shape).astype(np.float32)
+    ang = rng.uniform(0.0, 60.0, (shape[-2], shape[-1] // 2))
+    cos, sin = (f(ang).astype(np.float32) for f in (np.cos, np.sin))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    return ([jnp.asarray(v, jd) for v in (x, cos, sin)],
+            [torch.from_numpy(v).to(td) for v in (x, cos, sin)])
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 3, 37, 64), "float32"),  # S not a multiple of the 8-row block
+    ((5, 13, 32), "float32"),
+    ((2, 3, 37, 64), "bfloat16"),
+])
+def test_apply_rope_matches_jax(shape, dtype):
+    """K6's plain version against the Pallas kernel (interpret mode): f32
+    within RTOL, bf16 to the bit (both round after each bf16 product)."""
+    jargs, targs = _rope_case(np.random.default_rng(22), shape, dtype)
+    want = np.asarray(jops.apply_rope(*jargs).astype(jnp.float32))
+    got = kops.apply_rope(*targs)
+    assert got.dtype == targs[0].dtype and got.shape == shape
+    tol = RTOL if dtype == "float32" else 0.0
+    assert _rel(got.float().numpy(), want) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_rope_vjp_matches_jax(dtype):
+    """dx = K6(g, cos, -sin) against ``jax.vjp`` of ``ops.apply_rope``."""
+    rng = np.random.default_rng(23)
+    jargs, targs = _rope_case(rng, (2, 3, 21, 32), dtype)
+    g = rng.standard_normal((2, 3, 21, 32)).astype(np.float32)
+    _, vjp = jax.vjp(jops.apply_rope, *jargs)
+    want = np.asarray(vjp(jnp.asarray(g, jargs[0].dtype))[0].astype(
+        jnp.float32))
+    x = targs[0].clone().requires_grad_(True)
+    out = kops.apply_rope(x, *targs[1:])
+    (dx,) = torch.autograd.grad(out, [x], torch.from_numpy(g).to(x.dtype))
+    tol = RTOL if dtype == "float32" else 0.0
+    assert _rel(dx.float().numpy(), want) <= tol
+
+
+@pytest.mark.parametrize("B,S,D,N", [(2, 37, 200, 16), (1, 9, 10, 4)])
+def test_selective_scan_matches_jax(B, S, D, N):
+    """K7's plain version against the Pallas kernel (interpret mode; D not
+    a multiple of its 128-lane block) and the reference's oracle."""
+    rng = np.random.default_rng(24)
+    dt = (0.2 * np.log1p(np.exp(rng.standard_normal((B, S, D))))).astype(
+        np.float32)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    bs = rng.standard_normal((B, S, N)).astype(np.float32)
+    cs = rng.standard_normal((B, S, N)).astype(np.float32)
+    a = -np.exp(rng.standard_normal((D, N))).astype(np.float32)
+    args = (dt, x, bs, cs, a)
+    got = kops.selective_scan(*(torch.from_numpy(v) for v in args))
+    assert got.dtype == torch.float32 and got.shape == (B, S, D)
+    for oracle in (jops.selective_scan, jops.selective_scan_ref):
+        want = np.asarray(oracle(*(jnp.asarray(v) for v in args)))
+        assert _rel(got.numpy(), want) <= RTOL, oracle.__name__
+    ref_y = kops.selective_scan_ref(*(torch.from_numpy(v) for v in args))
+    assert torch.equal(got, ref_y)
+
+
+def test_k5_to_k7_wrappers_reject_bad_inputs():
+    a = torch.zeros((2, 8, 8), dtype=torch.complex64)
+    with pytest.raises(TypeError, match="complex64"):
+        kops.complex_mul(a, torch.zeros((8, 8)))
+    with pytest.raises(ValueError, match="plane"):
+        kops.complex_mul(a, a)
+    x = torch.zeros((2, 5, 8))
+    with pytest.raises(TypeError, match="share"):
+        kops.apply_rope(x, torch.zeros((5, 4), dtype=torch.bfloat16),
+                        torch.zeros((5, 4), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="cos/sin"):
+        kops.apply_rope(x, torch.zeros((5, 8)), torch.zeros((5, 8)))
+    with pytest.raises(ValueError, match="selective_scan"):
+        kops.selective_scan(x, x, x[..., :2], x[..., :2], torch.zeros((8, 3)))

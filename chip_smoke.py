@@ -11,15 +11,22 @@ script exits non-zero without the final line:
    gives them.
 2. build   — compiles the hand-written kernels from
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
-   source, in parallel).
+   source, in parallel).  The facts phase prints each kernel entry's
+   registers, spills, static shared memory and resident blocks a SM
+   (worked out from ptxas's numbers), K3 at one mask beside ten, and the
+   launch floor of K3 and K5 at a 1x1 field.
 3. kernels — runs each kernel (K1 conj_phase_scale, K2 phase_tf_apply,
    K3 intensity_readout, K4 phase_apply) and its plain PyTorch version on
    the card on the main path's shapes (32x200x200 with a shared plane, a
-   P=5 stack) and an odd 37x53 shape; holds each to max|kernel - plain|
-   <= 1e-5 * max|plain| and times both with CUDA events.  Then holds the
-   backward of each autograd Function (_PhaseTFApply, _FusedHop,
-   _Readout, _PhaseApply) at 32x200x200 against autograd through the
-   plain versions on the card, to the same tolerance.
+   P=5 stack) and odd 37x53 shapes; holds each to max|kernel - plain|
+   <= 1e-5 * max|plain| and times both with CUDA events, and prints each
+   kernel's share of its bound.  K3 is also held at B 1 and 33, C 1 and
+   17 and on an 8-byte-aligned view, repeated to the bit, and one field's
+   readout is held to the bit across the buckets 1, 8 and 32 and alone
+   against inside a batch.  Then holds the backward of each autograd
+   Function (_PhaseTFApply, _FusedHop, _Readout, _PhaseApply) at
+   32x200x200 against autograd through the plain versions on the card,
+   to the same tolerance.
 4. slice   — builds ``donn-mnist-5l`` (n=200, depth 5, qat 256 levels,
    use_pallas) on the card from a seeded generator, freezes it with f32,
    bf16 and int8 planes (and f32 with the rfft first hop), serves 32
@@ -54,13 +61,14 @@ script exits non-zero without the final line:
    0's mixer tensors (dt, x, B, C, A) of a batch-8, S=2048 prefill.  Each
    model is freed before the next is built.
 
-Phase 3 also holds K5 complex_mul (32x200x200 x (200, 200)), K6 rope
-(the qwen1.5-4b prefill shape (160, 2048, 128), bf16 and f32) and K7
-selective_scan (B 8, S 2048, D 8192, N 16) against their plain versions,
-and their autograd Functions (_ComplexMul, _Rope) backward.
+Phase 3 also holds K5 complex_mul (32x200x200 x (200, 200); at odd
+37x53, a[1:] and a[1:3] of an odd batch, whose starts are 8 bytes off 16),
+K6 rope (the qwen1.5-4b prefill shape (160, 2048, 128), bf16 and f32) and
+K7 selective_scan (B 8, S 2048, D 8192, N 16) against their plain
+versions, and their autograd Functions (_ComplexMul, _Rope) backward.
 
-Then one JSON line lists every kernel with its launches on the counted
-windows (DONN serving + training, LM serving, the LM holds), its
+Then one JSON line lists every kernel with its launches on the main path
+(DONN serving + training, LM serving) and in the LM holds apart, its
 launches per training step on each engine and per LM window, error and
 times, and the last line is the device record.
 ``--profile FILE`` adds ``torch.profiler`` tables of PROFILE_BATCHES
@@ -75,6 +83,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -201,6 +210,93 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
 
 
+# block size of each kernel entry where it is not 256 threads
+BLOCK_THREADS = {"selective_scan_kernel": 128}
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def _entries(log: str):
+    """(mangled name, registers, spill bytes, static smem bytes) of every
+    kernel entry in an ``nvcc -Xptxas -v`` log."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            cur = {"entry": m.group(1), "spill": 0, "smem": 0}
+            continue
+        if cur is None:
+            continue
+        m = _SPILL.search(line)
+        if m:
+            cur["spill"] = int(m.group(1)) + int(m.group(2))
+        m = _USED.search(line)
+        if m:
+            cur["regs"] = int(m.group(1))
+            m = _SMEM.search(line)
+            cur["smem"] = int(m.group(1)) if m else 0
+            out.append(cur)
+            cur = None
+    return out
+
+
+def _demangle(entry: str) -> str:
+    m = re.match(r"_Z(\d+)", entry)
+    return entry[m.end():m.end() + int(m.group(1))] if m else entry
+
+
+def _blocks_per_sm(regs: int, smem: int, threads: int) -> int:
+    """Resident blocks a SM of a kernel entry, worked out as the occupancy
+    API does from ptxas's registers and static shared memory and the H100's
+    per-SM limits: 65,536 registers allocated 256 a warp, 64 warps, 32
+    blocks, 233,472 bytes of shared memory with 1 KB reserved a block."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    by_regs = (65536 // per_warp) // warps if regs else 32
+    by_smem = 233472 // (smem + 1024)
+    return min(by_regs, 64 // warps, 32, by_smem)
+
+
+def phase_facts(dev) -> None:
+    """What a kernel redesign rests on: each entry's registers, spills,
+    static shared memory and resident blocks a SM; K3 at one class beside
+    ten, and the launch floor of K3 and K5 at a 1x1 field."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"[facts] {sms} SMs")
+    for name in sorted(build.SOURCES):
+        for e in _entries(build.BUILD_LOG.get(name, "")):
+            short = _demangle(e["entry"])
+            threads = BLOCK_THREADS.get(short, 256)
+            bps = _blocks_per_sm(e["regs"], e["smem"], threads)
+            print(f"[facts] {name}: {short} ({e['entry']}): {e['regs']} "
+                  f"registers, {e['spill']} bytes spilled, {e['smem']} bytes "
+                  f"static smem; {bps} blocks of {threads} threads a SM, "
+                  f"{bps * sms} resident")
+    gen = torch.Generator().manual_seed(99)
+    B, n = 32, 200
+    from repro_torch.core import diffraction as df
+    from repro_torch.core.layers import Detector
+
+    masks = Detector(df.Grid(n, 36e-6), 10, 20, device=dev).masks_t
+    us = [_cfield((B, n, n), gen, dev) for _ in range(8)]
+    it = iter(range(10 ** 9))
+    for c in (10, 1):
+        m = masks[:c].contiguous()
+        t = device_ms(lambda: ops.intensity_readout_rows(us[next(it) % 8], m))
+        print(f"[facts] intensity_readout 32x200x200, {c} masks: "
+              f"{t * 1e3:.2f} us")
+    tiny = _cfield((B, 1, 1), gen, dev)
+    m1 = masks[:, :1, :1].contiguous()
+    t = device_ms(lambda: ops.intensity_readout_rows(tiny, m1))
+    print(f"[facts] intensity_readout 32x1x1, 10 masks (launch floor): "
+          f"{t * 1e3:.2f} us")
+    b1 = _cfield((1, 1), gen, dev)
+    t = device_ms(lambda: ops.complex_mul_rows(tiny, b1))
+    print(f"[facts] complex_mul 32x1x1 (launch floor): {t * 1e3:.2f} us")
+
+
 def device_ms(fn, reps: int = 100, warmup: int = 5) -> float:
     """Device time per call: the stream is held by a sleep kernel while
     the host queues ``reps`` calls, so host overhead leaves no gaps (for
@@ -295,19 +391,32 @@ def phase_kernels(dev) -> dict:
 
     det = Detector(df.Grid(n, 36e-6), 10, 20, device=dev)
     errs = []
-    k3_cases = [("32x200x200 detector masks", (B, n, n), det.masks_t),
-                ("32x200x200 general masks", (B, n, n),
+    odd = _cfield((7, 37, 53), gen, dev)
+    k3_cases = [("32x200x200 detector masks", _cfield((B, n, n), gen, dev),
+                 det.masks_t),
+                ("32x200x200 general masks", _cfield((B, n, n), gen, dev),
                  torch.randn((10, n, n), generator=gen).to(dev)),
-                ("odd 37x53 general masks", (5, 37, 53),
+                ("B 1, 200x200 detector masks", _cfield((1, n, n), gen, dev),
+                 det.masks_t),
+                ("B 33 (beyond one field group), 200x200",
+                 _cfield((33, n, n), gen, dev), det.masks_t),
+                ("odd 37x53 general masks", odd[:5],
+                 torch.randn((10, 37, 53), generator=gen).to(dev)),
+                ("odd 37x53, C 1", odd, torch.randn((1, 37, 53),
+                                                    generator=gen).to(dev)),
+                ("odd 37x53, C 17 (two class chunks)", odd,
+                 torch.randn((17, 37, 53), generator=gen).to(dev)),
+                ("odd 37x53, u[1:] (8-byte-aligned fields)", odd[1:],
                  torch.randn((10, 37, 53), generator=gen).to(dev))]
-    for case, shape, masks in k3_cases:
-        u = _cfield(shape, gen, dev)
+    for case, u, masks in k3_cases:
         got = ops.intensity_readout_rows(u, masks)
         again = ops.intensity_readout_rows(u, masks)
         if not torch.equal(got, again):
-            raise AssertionError("intensity_readout: repeated runs differ")
+            raise AssertionError(f"intensity_readout/{case}: repeated runs "
+                                 "differ")
         errs.append(_compare("intensity_readout", case, got,
                              ref.intensity_readout_ref(u, masks)))
+    _hold_readout_batch_independence(dev, gen, det.masks_t)
     us = [_cfield((B, n, n), gen, dev) for _ in range(8)]
     lib_want = ref.intensity_readout_ref(us[0], det.masks_t)
     lib_err = (_readout_einsum(us[0], det.masks_t) - lib_want).abs().max().item()
@@ -357,7 +466,8 @@ def phase_kernels(dev) -> dict:
         print(f"[kernels] {k}: {r['ms'] * 1e3:.2f} us/launch, plain "
               f"{r['plain_ms'] * 1e3:.2f} us, library {lib_txt}, bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}: "
-              f"{r['nbytes'] / 1e6:.2f} MB, {r['flops'] / 1e9:.2f} GFLOP)")
+              f"{r['nbytes'] / 1e6:.2f} MB, {r['flops'] / 1e9:.2f} GFLOP), "
+              f"{r['bound_ms'] / r['ms']:.1%} of the bound")
         if "exps" in r:
             r["sfu_bound_ms"] = r["exps"] / SFU_PER_S * 1e3
             print(f"[kernels] {k}: {r['exps'] / 1e9:.3f}e9 exps over the "
@@ -366,14 +476,48 @@ def phase_kernels(dev) -> dict:
     return rows
 
 
+def _hold_readout_batch_independence(dev, gen, masks) -> None:
+    """K3 gives a field's readout to the bit whatever batch it is served
+    in: one field at the serving buckets 1, 8 and 32 and at two positions,
+    and an odd-H*W field alone (16-byte aligned) and at an odd position of
+    a batch (8-byte aligned)."""
+    u = _cfield((32, 200, 200), gen, dev)
+    f = 5
+    rows = {"bucket 32": ops.intensity_readout_rows(u, masks)[f],
+            "bucket 8": ops.intensity_readout_rows(u[:8], masks)[f],
+            "bucket 8 at position 2": ops.intensity_readout_rows(
+                u[3:11], masks)[f - 3],
+            "bucket 1": ops.intensity_readout_rows(u[f:f + 1], masks)[0]}
+    odd = _cfield((9, 37, 53), gen, dev)
+    omasks = torch.randn((10, 37, 53), generator=gen).to(dev)
+    orows = {"in a batch of 9": ops.intensity_readout_rows(odd, omasks)[3],
+             "alone, 8-byte aligned": ops.intensity_readout_rows(
+                 odd[3:4], omasks)[0],
+             "alone, 16-byte aligned": ops.intensity_readout_rows(
+                 odd[3:4].clone(), omasks)[0]}
+    for what, group in (("200x200 field 5", rows), ("37x53 field 3", orows)):
+        first = next(iter(group.values()))
+        same = {k: bool(torch.equal(v, first)) for k, v in group.items()}
+        print(f"[kernels] intensity_readout {what}: bits equal {same}")
+        if not all(same.values()):
+            raise AssertionError(f"intensity_readout: {what} depends on its "
+                                 "batch")
+
+
 def kernels_k5(dev, gen) -> dict:
     """K5 complex_mul against its plain version; ``a * b`` timed beside."""
     B, n = 32, 200
     errs = []
-    for case, shape in (("32x200x200 shared plane", (B, n, n)),
-                        ("odd 37x53", (5, 37, 53))):
-        a = _cfield(shape, gen, dev)
-        b = _cfield(shape[1:], gen, dev)
+    odd = _cfield((6, 37, 53), gen, dev)
+    planes = _cfield((2, 37, 53), gen, dev)
+    cases = [("32x200x200 shared plane", _cfield((B, n, n), gen, dev),
+              _cfield((n, n), gen, dev)),
+             ("odd 37x53, B 5 (a lone last element)", odd[:5], planes[0]),
+             ("odd 37x53, a[1:] (8-byte-aligned start)", odd[1:], planes[0]),
+             ("odd 37x53, a[1:3] (lone first and last elements), b "
+              "8-byte aligned", odd[1:3], planes[1]),
+             ("odd 37x53, B 1", odd[2:3].clone(), planes[1])]
+    for case, a, b in cases:
         errs.append(_compare("complex_mul", case, ops.complex_mul_rows(a, b),
                              ref.complex_mul_ref(a, b)))
     as_ = [_cfield((B, n, n), gen, dev) for _ in range(8)]
@@ -1047,6 +1191,7 @@ def main(argv=None) -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
+    phase_facts(dev)
     rows = phase_kernels(dev)
     phase_backward(dev)
     launches = phase_slice(dev, smi, args.profile)
@@ -1061,8 +1206,13 @@ def main(argv=None) -> int:
         row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
+            # the main path: DONN serving and training, LM serving; the LM
+            # holds (K6 on q/k, K7 on the mixer tensors) apart
             "launches": (launches[name] + train["counted"][name]
-                         + sum(lm_launches.values())),
+                         + sum(v for w, v in lm_launches.items()
+                               if w.startswith("lm_serve"))),
+            "hold_launches": sum(v for w, v in lm_launches.items()
+                                 if w.startswith("lm_hold")),
             "serve_launches": launches[name],
             "train_launches": {eng: c[name]
                                for eng, c in train["per_step"].items()},

@@ -11,6 +11,7 @@
 // launch.
 #pragma once
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -49,3 +50,33 @@ inline dim3 elementwise_grid(int64_t hw, int64_t slabs) {
   const int64_t gy = slabs < kMaxGridY ? slabs : kMaxGridY;
   return dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy), 1);
 }
+
+// SMs x resident blocks a SM of one kernel at one block size and shared
+// memory size, asked of the occupancy API once per device and kept: a
+// launcher that sizes its grid to whole waves reads it on every call.
+constexpr int kMaxDevices = 64;
+
+struct ResidentBlocks {
+  std::atomic<int> per_device[kMaxDevices] = {};
+
+  template <typename Kernel>
+  cudaError_t get(Kernel kernel, int threads, size_t smem, int device,
+                  int* out) {
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    int n = per_device[device].load(std::memory_order_relaxed);
+    if (n == 0) {
+      int sms = 0, per_sm = 0;
+      cudaError_t err = cudaDeviceGetAttribute(
+          &sms, cudaDevAttrMultiProcessorCount, device);
+      if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                            threads, smem);
+      }
+      if (err != cudaSuccess) return err;
+      n = sms * (per_sm > 0 ? per_sm : 1);
+      per_device[device].store(n, std::memory_order_relaxed);
+    }
+    *out = n;
+    return cudaSuccess;
+  }
+};

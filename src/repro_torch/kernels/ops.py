@@ -162,8 +162,8 @@ def intensity_readout_rows(u, masks):
     B, H, W = u.shape
     C = masks.shape[0]
     lib = build.library("intensity_readout")
-    tiles = -(-(H * W) // lib.readout_tile_pixels())
-    partial = torch.empty((B, tiles, C), dtype=torch.float32, device=u.device)
+    partial = torch.empty(lib.readout_scratch_floats(B, H * W, C),
+                          dtype=torch.float32, device=u.device)
     out = torch.empty((B, C), dtype=torch.float32, device=u.device)
     build.check(lib, lib.intensity_readout(
         u.data_ptr(), masks.data_ptr(), partial.data_ptr(), out.data_ptr(),

@@ -331,14 +331,58 @@ def test_gradients_flow_through_each_function_on_the_card(cuda):
 
 
 def test_readout_is_deterministic_and_batch_independent(cuda):
+    """K3 repeats to the bit, and a field's readout does not depend on the
+    batch it is served in, at the edges of the tiling: H*W not a multiple
+    of the tile (37x53), C = 1 and C = 17 (across the class chunk), B = 1
+    and B = 33 (beyond one field group), and an 8-byte-aligned field.  Each
+    within 1e-5 of the plain version."""
     gen = torch.Generator().manual_seed(1)
-    u = _field(gen, (9, 200, 200), cuda)
+    for (B, H, W), C in (((9, 200, 200), 10), ((33, 200, 200), 10),
+                         ((1, 200, 200), 10), ((9, 37, 53), 1),
+                         ((9, 37, 53), 17)):
+        u = _field(gen, (B, H, W), cuda)
+        masks = torch.rand((C, H, W), generator=gen).to(cuda)
+        a = ops.intensity_readout(u, masks)
+        for _ in range(3):
+            assert torch.equal(ops.intensity_readout(u, masks), a)
+        assert _rel(a, ref.intensity_readout_ref(u, masks)) <= 1e-5
+        # a field's readout does not depend on the batch it is served in
+        # (at odd H*W, u[3:5] starts 8 bytes off a 16-byte boundary; at
+        # B = 1 it is empty)
+        assert torch.equal(ops.intensity_readout(u[3:5], masks), a[3:5])
+        assert torch.equal(ops.intensity_readout(u[:1], masks), a[:1])
+    # one field alone and inside batches of 8 and 32, at two positions
+    u = _field(gen, (32, 200, 200), cuda)
     masks = torch.rand((10, 200, 200), generator=gen).to(cuda)
-    a = ops.intensity_readout(u, masks)
-    for _ in range(3):
-        assert torch.equal(ops.intensity_readout(u, masks), a)
-    # a field's readout does not depend on the batch it is served in
-    assert torch.equal(ops.intensity_readout(u[3:5], masks), a[3:5])
+    alone = ops.intensity_readout(u[5:6].clone(), masks)[0]
+    for batch, pos in ((u, 5), (u[:8], 5), (u[3:11], 2), (u[5:], 0)):
+        assert torch.equal(ops.intensity_readout(batch, masks)[pos], alone)
+    odd = _field(gen, (9, 37, 53), cuda)
+    omasks = torch.rand((10, 37, 53), generator=gen).to(cuda)
+    alone = ops.intensity_readout(odd[3:4].clone(), omasks)[0]
+    for batch, pos in ((odd, 3), (odd[3:4], 0), (odd[1:], 2)):
+        assert torch.equal(ops.intensity_readout(batch, omasks)[pos], alone)
+
+
+def test_complex_mul_at_odd_sizes_and_misaligned_views(cuda):
+    """K5 against its plain version (1e-5 of the max) where its float4
+    pairs meet an edge: odd H*W (a pair straddles two fields, a lone last
+    element), a[1:] and a[1:3] of an odd-H*W batch (a start 8 bytes off
+    16, lone first and last elements), a plane b 8 bytes off 16, and one
+    launch counted each."""
+    gen = torch.Generator().manual_seed(3)
+    odd = _field(gen, (6, 37, 53), cuda)
+    planes = _field(gen, (2, 37, 53), cuda)
+    cases = [(odd[:5], planes[0]), (odd[1:], planes[0]),
+             (odd[1:3], planes[1]), (odd[2:3].clone(), planes[1]),
+             (_field(gen, (3, 1, 1), cuda)[1:], _field(gen, (1, 1), cuda)),
+             (_field(gen, (32, 200, 200), cuda), _field(gen, (200, 200),
+                                                        cuda))]
+    ops.reset_launch_counts()
+    for a, b in cases:
+        got = ops.complex_mul_rows(a, b)
+        assert _rel(got, ref.complex_mul_ref(a, b)) <= 1e-5
+    assert ops.launch_counts()["complex_mul"] == len(cases)
 
 
 def test_serving_slice_on_the_card_matches_cpu(cuda):

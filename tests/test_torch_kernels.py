@@ -190,7 +190,7 @@ def test_exported_signatures_read_the_c_prototypes():
             "phase_apply": ([P, P, P, I64, I64, F32, P, INT], INT)},
         "intensity_readout": {
             "intensity_readout": ([P, P, P, P, I64, I64, INT, P, INT], INT),
-            "readout_tile_pixels": ([], INT)},
+            "readout_scratch_floats": ([I64, I64, INT], I64)},
         "rope": {
             "rope_f32": ([P, P, P, P, I64, I64, I64, P, INT], INT),
             "rope_bf16": ([P, P, P, P, I64, I64, I64, P, INT], INT)},
@@ -229,7 +229,7 @@ class _CheckingLib:
             for t, a in zip(argtypes, args):
                 t.from_param(a)  # TypeError on a value of the wrong type
             self.calls.append(fn)
-            return 2048 if fn == "readout_tile_pixels" else 0
+            return 64 if fn == "readout_scratch_floats" else 0
         return call
 
 
@@ -258,7 +258,7 @@ def test_card_wrappers_pass_the_launchers_their_c_arguments(monkeypatch):
     assert libs["spectral_hop"].calls == ["conj_phase_scale"]
     assert libs["complex_mul"].calls == ["phase_tf_apply", "phase_apply",
                                          "complex_mul"]
-    assert libs["intensity_readout"].calls == ["readout_tile_pixels",
+    assert libs["intensity_readout"].calls == ["readout_scratch_floats",
                                                "intensity_readout"]
     assert libs["rope"].calls == ["rope_f32", "rope_bf16"]
     assert libs["selective_scan"].calls == ["selective_scan"]

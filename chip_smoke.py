@@ -12,9 +12,12 @@ script exits non-zero without the final line:
 2. build   — compiles the hand-written kernels from
    ``src/repro_torch/kernels/csrc`` with nvcc for sm_90a (one nvcc per
    source, in parallel).  The facts phase prints each kernel entry's
-   registers, spills, static shared memory and resident blocks a SM
-   (worked out from ptxas's numbers), K3 at one mask beside ten, and the
-   launch floor of K3 and K5 at a 1x1 field.
+   registers, spills, static and dynamic shared memory and resident
+   blocks a SM (worked out from ptxas's numbers and the launcher's
+   dynamic bytes), K7's SASS instructions a state-step with the issue and
+   FP32 bounds they give, K7 at B 1 (one sequence's prefill) against its
+   own bound, K3 at one mask beside ten, and the launch floor of K3 and K5
+   at a 1x1 field.
 3. kernels — runs each kernel (K1 conj_phase_scale, K2 phase_tf_apply,
    K3 intensity_readout, K4 phase_apply) and its plain PyTorch version on
    the card on the main path's shapes (32x200x200 with a shared plane, a
@@ -64,8 +67,12 @@ script exits non-zero without the final line:
 Phase 3 also holds K5 complex_mul (32x200x200 x (200, 200); at odd
 37x53, a[1:] and a[1:3] of an odd batch, whose starts are 8 bytes off 16),
 K6 rope (the qwen1.5-4b prefill shape (160, 2048, 128), bf16 and f32) and
-K7 selective_scan (B 8, S 2048, D 8192, N 16) against their plain
-versions, and their autograd Functions (_ComplexMul, _Rope) backward.
+K7 selective_scan against their plain versions, and their autograd
+Functions (_ComplexMul, _Rope) backward.  K7 is held at general A
+(-exp(randn), dt log-uniform over 1e-3..1) as well as the s4d A =
+-(n+1): ragged D 203 with N 1, 4, 16 and 32 and S 37, D 260 at S 35, and
+the timed shape B 8, S 2048, D 8192, N 16 both ways; each case repeats
+to the bit and its batch row 1 alone equals the row inside its batch.
 
 Then one JSON line lists every kernel with its launches on the main path
 (DONN serving + training, LM serving) and in the LM holds apart, its
@@ -122,8 +129,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 # H100 SXM: 16 special-function (ex2) results a clock per SM, 132 SMs, at
 # its 1.98 GHz maximum clock (Hopper architecture white paper): the rate
-# K7's exps are reckoned against beside its bytes.
+# K7's exps are reckoned against, printed beside its bound.  Not a
+# published peak: it limits K7's design, which puts every exp on the
+# MUFU, not the function, so the roofline bound stays bytes vs f32.
 SFU_PER_S = 16 * 132 * 1.98e9
+# warp instructions a second over the H100's 4 schedulers a SM, each
+# issuing one a clock; the FP32 pipe of a scheduler (32 lanes) also takes
+# one a clock: what K7's SASS instruction mix is reckoned against
+ISSUE_PER_S = 4 * 132 * 1.98e9
 KERNEL_RTOL = 1e-5  # max|kernel - plain| / max|plain|
 ROPE_F32_RTOL = 1e-6  # K6 in f32: one rounding apart from the plain version
 # K6 in bf16: per element within ref.rope_rounding_bound, 3 * 2^-8 *
@@ -143,6 +156,7 @@ LM_SERVE_FLAGS = ["--slots", "8", "--requests", "24", "--prompt-len", "16",
 LM_HOLD_BATCH, LM_HOLD_SEQ = 8, 2048
 K6_SHAPE = (8 * 20, 2048, 128)  # qwen1.5-4b q of a batch-8, S=2048 prefill
 K7_SHAPE = (8, 2048, 8192, 16)  # B, S, D (falcon-mamba-7b d_inner), N
+K7_PREFILL_1 = (1, 2048, 8192, 16)  # one sequence's prefill
 
 KERNEL_META = {
     "conj_phase_scale": ("src/repro_torch/kernels/csrc/spectral_hop.cu",
@@ -249,7 +263,8 @@ def _demangle(entry: str) -> str:
 
 def _blocks_per_sm(regs: int, smem: int, threads: int) -> int:
     """Resident blocks a SM of a kernel entry, worked out as the occupancy
-    API does from ptxas's registers and static shared memory and the H100's
+    API does from ptxas's registers and the shared memory of a block
+    (static plus the dynamic bytes its launcher sets) and the H100's
     per-SM limits: 65,536 registers allocated 256 a warp, 64 warps, 32
     blocks, 233,472 bytes of shared memory with 1 KB reserved a block."""
     warps = -(-threads // 32)
@@ -259,21 +274,155 @@ def _blocks_per_sm(regs: int, smem: int, threads: int) -> int:
     return min(by_regs, 64 // warps, 32, by_smem)
 
 
+def _dynamic_smem(name: str, entry: str) -> int:
+    """Dynamic shared memory the launcher of a kernel entry sets: K7's
+    ring, by the entry's template argument NP (N's next power of two)."""
+    m = re.search(r"ILi(\d+)E", entry)
+    if name != "selective_scan" or m is None:
+        return 0
+    return build.library(name).selective_scan_smem_bytes(int(m.group(1)))
+
+
+_SASS_FUNCTION = re.compile(r"Function : (\S+)")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_INSTR = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)([^;]*);")
+_SASS_TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
+FP32_OPS = ("FFMA", "FMUL", "FADD")
+
+
+def sass_loops(lib_path) -> dict:
+    """{mangled entry: [(first, last, opcode counts), ...]}: every loop of
+    each function in ``cuobjdump -sass``, a body being the instructions
+    from a branch's target up to the branch when it jumps back."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out = {}
+    for chunk in re.split(r"\n(?=\s*Function : )", text):
+        m = _SASS_FUNCTION.search(chunk)
+        if m is None:
+            continue
+        instrs, labels, pending = [], {}, []
+        for line in chunk.splitlines():
+            lm = _SASS_LABEL.match(line)
+            if lm:
+                pending.append(lm.group(1))
+                continue
+            im = _SASS_INSTR.search(line)
+            if im:
+                addr = int(im.group(1), 16)
+                labels.update(dict.fromkeys(pending, addr))
+                pending = []
+                instrs.append((addr, im.group(2).split(".")[0], im.group(3)))
+        loops = []
+        for addr, op, args in instrs:
+            tm = _SASS_TARGET.search(args) if op == "BRA" else None
+            if tm is None:
+                continue
+            target = labels.get(tm.group(1)) if tm.group(1) else int(
+                tm.group(2), 16)
+            if target is None or target > addr:
+                continue
+            counts: dict = {}
+            for a, o, _ in instrs:
+                if target <= a <= addr:
+                    counts[o] = counts.get(o, 0) + 1
+            loops.append((target, addr, counts))
+        out[m.group(1)] = loops
+    return out
+
+
+def k7_loop_mix(loops) -> tuple:
+    """(step loop, tile loop) of a K7 entry: the smallest loop that holds
+    a MUFU (the exps), and the smallest loop around it that holds the
+    barrier; either is None where the SASS has no such loop."""
+    size = lambda lp: sum(lp[2].values())  # noqa: E731
+    step = min((lp for lp in loops if lp[2].get("MUFU")), key=size,
+               default=None)
+    if step is None:
+        return None, None
+    tile = min((lp for lp in loops if lp[2].get("BAR") and lp[0] <= step[0]
+                and step[1] <= lp[1]), key=size, default=None)
+    return step, tile
+
+
+def _facts_k7(dev, entries) -> None:
+    """K7's instruction mix a state-step in the SASS of each entry's step
+    loop (one MUFU.EX2 a state-step, so the MUFU count is the state-steps of
+    the body) and the instructions its tile loop adds, the issue and FP32
+    bounds the mix gives at the timed shape, and the time of one sequence's
+    prefill beside its own bound."""
+    try:
+        loops = sass_loops(build._target("selective_scan"))
+    except (OSError, subprocess.SubprocessError) as exc:
+        print(f"[facts] selective_scan SASS not read: {exc}")
+        loops = {}
+    B, S, D, N = K7_SHAPE
+    warp_steps = B * S * D * N / 32
+    for entry in entries:
+        step, tile = k7_loop_mix(loops.get(entry, []))
+        if step is None:
+            print(f"[facts] selective_scan {entry}: no loop with a MUFU")
+            continue
+        mix = step[2]
+        steps = mix["MUFU"]
+        total = sum(mix.values())
+        fp32 = sum(mix.get(op, 0) for op in FP32_OPS)
+        top = ", ".join(f"{op} {c / steps:.2f}" for op, c in sorted(
+            mix.items(), key=lambda kv: -kv[1])[:8])
+        extra = (0 if tile is None or tile is step
+                 else sum(tile[2].values()) - total)
+        line = (f"[facts] selective_scan {entry} step loop: {total} "
+                f"instructions for {steps} state-steps (MUFU): "
+                f"{total / steps:.2f} a state-step, {fp32 / steps:.2f} FP32 "
+                f"({top}); the tile loop around it holds {extra} more "
+                f"(both copy paths, one runs)")
+        if re.search(rf"ILi{N}E", entry):
+            line += (f"; at B {B}, S {S}, D {D}, N {N} the step loop's issue "
+                     f"bound is "
+                     f"{total / steps * warp_steps / ISSUE_PER_S * 1e6:.2f}"
+                     f" us, its FP32 pipe "
+                     f"{fp32 / steps * warp_steps / ISSUE_PER_S * 1e6:.2f} us"
+                     f", the SFU {B * S * D * N / SFU_PER_S * 1e6:.2f} us")
+        print(line)
+    B, S, D, N = K7_PREFILL_1
+    args = _scan_inputs(B, S, D, N, torch.Generator().manual_seed(7), dev,
+                        general=True)
+    t = device_ms(lambda: ops.selective_scan(*args), reps=20, warmup=2)
+    bound = max(_scan_bytes(B, S, D, N) / HBM_BYTES_PER_S,
+                B * S * D * N * 8 / F32_FLOP_PER_S) * 1e3
+    sfu = B * S * D * N / SFU_PER_S * 1e3
+    print(f"[facts] selective_scan B {B}, S {S}, D {D}, N {N} (one "
+          f"sequence's prefill): {t * 1e3:.2f} us, bound {bound * 1e3:.2f} "
+          f"us (bytes), {bound / t:.1%} of it; SFU {sfu * 1e3:.2f} us, "
+          f"{sfu / t:.1%} of it")
+
+
 def phase_facts(dev) -> None:
     """What a kernel redesign rests on: each entry's registers, spills,
-    static shared memory and resident blocks a SM; K3 at one class beside
-    ten, and the launch floor of K3 and K5 at a 1x1 field."""
+    shared memory (static, and dynamic where its launcher sets it) and
+    resident blocks a SM; K7's SASS instruction mix and one sequence's
+    prefill; K3 at one class beside ten, and the launch floor of K3 and K5
+    at a 1x1 field."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"[facts] {sms} SMs")
+    k7_entries = []
     for name in sorted(build.SOURCES):
         for e in _entries(build.BUILD_LOG.get(name, "")):
             short = _demangle(e["entry"])
             threads = BLOCK_THREADS.get(short, 256)
-            bps = _blocks_per_sm(e["regs"], e["smem"], threads)
+            dyn = _dynamic_smem(name, e["entry"])
+            bps = _blocks_per_sm(e["regs"], e["smem"] + dyn, threads)
             print(f"[facts] {name}: {short} ({e['entry']}): {e['regs']} "
                   f"registers, {e['spill']} bytes spilled, {e['smem']} bytes "
-                  f"static smem; {bps} blocks of {threads} threads a SM, "
-                  f"{bps * sms} resident")
+                  f"static smem, {dyn} dynamic; {bps} blocks of {threads} "
+                  f"threads a SM, {bps * sms} resident")
+            if name == "selective_scan":
+                k7_entries.append(e["entry"])
+    _facts_k7(dev, k7_entries)
     gen = torch.Generator().manual_seed(99)
     B, n = 32, 200
     from repro_torch.core import diffraction as df
@@ -472,7 +621,8 @@ def phase_kernels(dev) -> dict:
             r["sfu_bound_ms"] = r["exps"] / SFU_PER_S * 1e3
             print(f"[kernels] {k}: {r['exps'] / 1e9:.3f}e9 exps over the "
                   f"SFU rate {SFU_PER_S / 1e12:.2f}e12/s: "
-                  f"{r['sfu_bound_ms'] * 1e3:.2f} us")
+                  f"{r['sfu_bound_ms'] * 1e3:.2f} us, the bound of this "
+                  f"design, {r['sfu_bound_ms'] / r['ms']:.1%} of it")
     return rows
 
 
@@ -595,37 +745,90 @@ def kernels_k6(dev, gen) -> dict:
     return rows
 
 
-def _scan_inputs(B, S, D, N, gen, dev):
-    dt = 0.1 * torch.nn.functional.softplus(torch.randn((B, S, D),
-                                                        generator=gen))
+def _scan_inputs(B, S, D, N, gen, dev, general=False):
+    """K7 inputs.  A = -(n+1) is the s4d init the served mixer starts from;
+    ``general`` takes A = -exp(randn(D, N)) and dt log-uniform over 1e-3..1,
+    as a trained mixer has, which the structured A would hide."""
+    if general:
+        dt = torch.empty((B, S, D)).uniform_(math.log(1e-3), 0.0,
+                                             generator=gen).exp()
+    else:
+        dt = 0.1 * torch.nn.functional.softplus(
+            torch.randn((B, S, D), generator=gen))
     x = torch.randn((B, S, D), generator=gen)
     bs = torch.randn((B, S, N), generator=gen)
     cs = torch.randn((B, S, N), generator=gen)
-    a = -torch.arange(1, N + 1, dtype=torch.float32).expand(D, N)
+    if general:
+        a = -torch.exp(torch.randn((D, N), generator=gen))
+    else:
+        a = -torch.arange(1, N + 1, dtype=torch.float32).expand(D, N)
     return [t.to(dev).contiguous() for t in (dt, x, bs, cs, a)]
+
+
+def scan_f64(dt, x, bs, cs, a):
+    """The model's scan from h = 0 in float64: what the f32 kernel and the
+    f32 plain version are both measured against, to tell how far each is
+    from the exact result."""
+    h0 = torch.zeros((x.shape[0], x.shape[2], a.shape[-1]),
+                     dtype=torch.float64, device=x.device)
+    y, _ = ssm._selective_scan(*(t.double() for t in (dt, bs, cs, x, a)),
+                               h0, chunk=64)
+    return y
+
+
+def _scan_bytes(B, S, D, N) -> int:
+    """dt and x read and y written once, B and C read once, A once."""
+    return 3 * B * S * D * 4 + 2 * B * S * N * 4 + D * N * 4
 
 
 def kernels_k7(dev, gen) -> dict:
     """K7 selective_scan against its plain version (the model's scan from
-    h = 0) at B 8, S 2048, D 8192, N 16 and a ragged D."""
+    h = 0): ragged D 203 (4-byte copies) with N 1, 4, 16 and 32 and S 37,
+    not a multiple of the tile, at general A; D 260 (16-byte copies and a
+    partial block) at S 35; the s4d A = -(n+1) at D 203 and D 64; the timed
+    shape B 8, S 2048, D 8192, N 16 with both A.  Every case repeats to the
+    bit, and a batch row computed alone equals it inside its batch."""
     errs = []
-    for case, shape in (("ragged D 203, N 16", (2, 37, 203, 16)),
-                        ("N 4", (2, 37, 64, 4))):
-        args = _scan_inputs(*shape, gen, dev)
-        errs.append(_compare("selective_scan", case, ops.selective_scan(*args),
-                             ref.selective_scan_ref(*args)))
+    cases = [(f"ragged D 203, S 37, N {N}, general A", (2, 37, 203, N), True)
+             for N in (1, 4, 16, 32)]
+    cases += [("D 260 (a partial block), S 35, N 16, general A",
+               (3, 35, 260, 16), True),
+              ("ragged D 203, S 37, N 16", (2, 37, 203, 16), False),
+              ("D 64, S 37, N 4", (2, 37, 64, 4), False)]
     B, S, D, N = K7_SHAPE
-    args = _scan_inputs(B, S, D, N, gen, dev)
-    errs.append(_compare("selective_scan", f"B {B}, S {S}, D {D}, N {N}",
-                         ops.selective_scan(*args),
-                         ref.selective_scan_ref(*args)))
+    cases += [(f"B {B}, S {S}, D {D}, N {N}{', general A' * g}", K7_SHAPE, g)
+              for g in (True, False)]
+    for case, shape, general in cases:
+        args = _scan_inputs(*shape, gen, dev, general)
+        got = ops.selective_scan(*args)
+        if not torch.equal(ops.selective_scan(*args), got):
+            raise AssertionError(f"selective_scan/{case}: repeated runs "
+                                 "differ")
+        row = ops.selective_scan(*(t[1:2] if t.dim() == 3 else t
+                                   for t in args))
+        if not torch.equal(row, got[1:2]):
+            raise AssertionError(f"selective_scan/{case}: batch row 1 alone "
+                                 "differs from it inside the batch")
+        want = ref.selective_scan_ref(*args)
+        errs.append(_compare("selective_scan", case, got, want))
+        if shape == K7_SHAPE and general:
+            exact = scan_f64(*args)
+            scale = exact.abs().max().item()
+            print(f"[kernels] selective_scan {case} against float64: kernel "
+                  f"{(got - exact).abs().max().item() / scale:.3e}, plain "
+                  f"{(want - exact).abs().max().item() / scale:.3e} of the "
+                  f"max")
+            del exact
+        del got, want
+    # timed on the last case: the timed shape at the s4d A, the inputs the
+    # earlier K7 times were taken on (the exps cost the same at any A)
     return {"selective_scan": dict(
         max_abs_err=max(errs),
         ms=device_ms(lambda: ops.selective_scan(*args), reps=10, warmup=2),
         plain_ms=device_ms(lambda: ref.selective_scan_ref(*args), reps=2,
                            warmup=1),
-        nbytes=3 * B * S * D * 4 + 2 * B * S * N * 4 + D * N * 4,
-        flops=B * S * D * N * 8, exps=B * S * D * N, library_ms=None)}
+        nbytes=_scan_bytes(B, S, D, N), flops=B * S * D * N * 8,
+        exps=B * S * D * N, library_ms=None)}
 
 
 def _compare_grads(what: str, got, want, rtol: float) -> float:

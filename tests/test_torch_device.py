@@ -147,6 +147,20 @@ def _scan_inputs(gen, dev, D=203, N=16):
     return [t.to(dev) for t in (dt, x, bs, cs, a)]
 
 
+def _general_scan_inputs(gen, dev, B, S, D, N):
+    """K7 inputs at general A, as a trained mixer has: A = -exp(randn(D, N))
+    and dt log-uniform over 1e-3..1.  The s4d A = -(n+1) of ``_scan_inputs``
+    (and of the served mixer's init) would hide a kernel that is right only
+    for that structure."""
+    dt = torch.empty((B, S, D)).uniform_(np.log(1e-3), 0.0,
+                                         generator=gen).exp()
+    x = torch.randn((B, S, D), generator=gen)
+    bs = torch.randn((B, S, N), generator=gen)
+    cs = torch.randn((B, S, N), generator=gen)
+    a = -torch.exp(torch.randn((D, N), generator=gen))
+    return [t.to(dev) for t in (dt, x, bs, cs, a)]
+
+
 def _rope_bound_ok(got, want, x, cos, sin) -> bool:
     """K6 in bf16 against its plain version: per element within
     ``ref.rope_rounding_bound``, 3 * 2^-8 (|x1 c| + |x2 s|) (the plain
@@ -362,6 +376,33 @@ def test_readout_is_deterministic_and_batch_independent(cuda):
     alone = ops.intensity_readout(odd[3:4].clone(), omasks)[0]
     for batch, pos in ((odd, 3), (odd[3:4], 0), (odd[1:], 2)):
         assert torch.equal(ops.intensity_readout(batch, omasks)[pos], alone)
+
+
+def test_selective_scan_at_general_a_repeats_and_is_batch_independent(cuda):
+    """K7 within 1e-5 of its plain version at general A for N 1, 4, 16 and
+    32 (states padded to NP 1, 4, 16, 32), D 203 (4-byte copies, a ragged
+    last block) and D 260 (16-byte copies, a partial last block), and S of
+    1, 17 and 2 * 16 + 3 (the kernel's tile is 16 steps); to the bit on a
+    repeat call; and each batch row computed alone equals it inside the
+    batch of 3, since rows are independent.  One launch a call."""
+    gen = torch.Generator().manual_seed(5)
+    ops.reset_launch_counts()
+    calls = 0
+    for N in (1, 4, 16, 32):
+        for S in (1, 17, 35):
+            for D in (203, 260):
+                args = _general_scan_inputs(gen, cuda, 3, S, D, N)
+                got = ops.selective_scan(*args)
+                assert _rel(got, ref.selective_scan_ref(*args)) <= 1e-5, \
+                    (N, S, D)
+                assert torch.equal(ops.selective_scan(*args), got), (N, S, D)
+                for r in range(3):
+                    alone = ops.selective_scan(*(
+                        t[r:r + 1] if t.dim() == 3 else t for t in args))
+                    assert torch.equal(alone, got[r:r + 1]), (N, S, D, r)
+                calls += 5
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["selective_scan"] == calls
 
 
 def test_complex_mul_at_odd_sizes_and_misaligned_views(cuda):

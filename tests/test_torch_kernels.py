@@ -196,7 +196,8 @@ def test_exported_signatures_read_the_c_prototypes():
             "rope_bf16": ([P, P, P, P, I64, I64, I64, P, INT], INT)},
         "selective_scan": {
             "selective_scan": ([P, P, P, P, P, P, I64, I64, I64, I64, P, INT],
-                               INT)},
+                               INT),
+            "selective_scan_smem_bytes": ([I64], I64)},
     }
     launchers["complex_mul"]["complex_mul"] = ([P, P, P, I64, I64, P, INT],
                                                INT)

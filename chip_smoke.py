@@ -51,7 +51,23 @@ script exits non-zero without the final line:
    ``serve_donn --train-steps 16`` at the config's width.
 6. cli     — runs ``repro_torch.launch.serve_donn.main`` once at the
    config's width.
-7. lm      — the LM serving slice with random parameters from seeded
+7. families — the paper's advanced DONNs, parameters from seeded
+   generators on the card, each result held against a CPU copy (plain
+   versions) within SLICE_RTOL: ``donn-rgb`` (n=200, 3 channels, 6
+   classes, depth 5; gamma calibrated first) trains TRAIN_STEPS steps on
+   each engine through ``make_train_chunk``, is frozen with f32, bf16 and
+   int8 planes and serves buckets 1, 8 and 32 through
+   ``InferenceEngine.infer`` and 64 single requests through
+   ``MicroBatcher`` (argmax equal); ``donn-seg`` (n=350, depth 5, the
+   optical skip from layer 0, layer norm) takes TRAIN_STEPS AdamW steps
+   of BCE written by hand and serves frozen f32 intensity maps at bucket
+   32; each family's launches are held against ``family_launches`` (RGB:
+   K3 over the B*C rows; segmentation: no K3), and both serve at bucket
+   32 on the kernel path and on plain torch, rows interleaved.  The cost
+   of K1's plane-major copies for the RGB (32, 3, 200, 200) field is
+   timed beside the fused hop.  ``hybrid-slm-printed`` (two segments, one
+   resample stitch) is held forward, backward and frozen.
+8. lm      — the LM serving slice with random parameters from seeded
    generators on the card, TF32 off: ``repro_torch.launch.serve.main``
    serves qwen1.5-4b (full width and depth, bf16 matmuls) at 8 slots, 24
    requests, prompt 16, 32 new tokens, twice; a full-width depth-2 f32
@@ -75,13 +91,15 @@ the timed shape B 8, S 2048, D 8192, N 16 both ways; each case repeats
 to the bit and its batch row 1 alone equals the row inside its batch.
 
 Then one JSON line lists every kernel with its launches on the main path
-(DONN serving + training, LM serving) and in the LM holds apart, its
+(DONN serving + training, the families, LM serving) and in the LM holds
+apart, its
 launches per training step on each engine and per LM window, error and
 times, and the last line is the device record.
 ``--profile FILE`` adds ``torch.profiler`` tables of PROFILE_BATCHES
 bucket-32 batches and of PROFILE_CHUNKS 8-step training chunks, with the
 device's busy time and idle share, printed and written to FILE (the
-training table to FILE.train).
+training table to FILE.train, RGB and segmentation serving to FILE.rgb
+and FILE.seg).
 """
 from __future__ import annotations
 
@@ -102,12 +120,16 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.donn import HYBRID_SLM_PRINTED  # noqa: E402
 from repro_torch.core.models import build_model  # noqa: E402
 from repro_torch.core.regularization import calibrate_gamma  # noqa: E402
 from repro_torch.core.train_utils import (  # noqa: E402
-    loss_and_grads, make_train_chunk, make_train_step, train_classifier,
+    bce_segmentation_loss, loss_and_grads, make_train_chunk, make_train_step,
+    train_classifier,
 )
-from repro_torch.data.synthetic import batch_iterator, synth_digits  # noqa: E402
+from repro_torch.data.synthetic import (  # noqa: E402
+    batch_iterator, synth_digits, synth_rgb_scenes, synth_seg,
+)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve, serve_donn  # noqa: E402
 from repro_torch.models import attention as lm_attn  # noqa: E402
@@ -120,7 +142,9 @@ from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.runtime.inference import (  # noqa: E402
     InferenceEngine, MicroBatcher, freeze,
 )
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.tree import (  # noqa: E402
+    tree_leaves, tree_map, tree_unflatten,
+)
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor
 # cores (dense, at the 700 W limit) — the bound every kernel time sits
@@ -1238,6 +1262,382 @@ def phase_cli() -> None:
         raise AssertionError("serve_donn served nothing")
 
 
+# --------------------------------------------------------------------------
+# families: the paper's advanced DONNs (RGB, segmentation, heterogeneous)
+# --------------------------------------------------------------------------
+def family_launches(depth: int, channels: int = 1,
+                    readout: bool = True) -> dict:
+    """Kernel launches of one optimizer step on each engine and of one
+    f32 serving batch, for an RGB (``channels`` > 1), segmentation
+    (``readout=False``: it serves intensity maps, no K3) or classify
+    DONN: the rule of ``train_launches_per_step``, K3 once over the B*C
+    rows; the eager engine runs K4 once a channel and layer forward and
+    once a channel and layer backward except layer 0's."""
+    per = train_launches_per_step(depth)
+    k3 = int(readout)
+    return {
+        "scan": {**per["scan"], "intensity_readout": k3},
+        "eager": {**per["eager"], "phase_apply": channels * (2 * depth - 1),
+                  "intensity_readout": k3},
+        "serve": {**dict.fromkeys(ops.KERNELS, 0),
+                  "conj_phase_scale": 2 * depth, "phase_tf_apply": 1,
+                  "intensity_readout": k3},
+    }
+
+
+def _counted(run) -> dict:
+    """Launches of ``run()`` alone: the counters are set to 0 just before
+    it and read just after."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    return ops.launch_counts()
+
+
+def _hold_launches(what: str, got: dict, per: dict, times: int) -> None:
+    want = {k: v * times for k, v in per.items()}
+    print(f"[families] {what}: launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{what}: the kernels did not run as counted")
+
+
+def _hold_out(what: str, got, want, argmax: bool) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: bad output {got.shape}")
+    rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+    same = (not argmax) or bool(np.array_equal(got.argmax(-1),
+                                               want.argmax(-1)))
+    print(f"[families] {what}: rel err vs the CPU copy {rel:.3e} (tol "
+          f"{SLICE_RTOL:g}){', argmax equal' if argmax and same else ''}")
+    if rel > SLICE_RTOL or not same:
+        raise AssertionError(f"{what}: card and CPU disagree")
+    return rel
+
+
+def _serve_rows(family: str, runs, x, smi: str) -> dict:
+    """req/s and per-batch p50/p99 at bucket 32 for each (label, engine),
+    WINDOW_S seconds a row, REPEATS times, rows interleaved."""
+    perf = {label: [] for label, _ in runs}
+    for rep in range(REPEATS):
+        for label, eng in runs:
+            for _ in range(10):
+                eng.infer(x)
+            lat = []
+            t_end = time.perf_counter() + WINDOW_S
+            while time.perf_counter() < t_end:
+                t0 = time.perf_counter()
+                eng.infer(x)
+                lat.append(time.perf_counter() - t0)
+            lat_ms = np.asarray(lat) * 1e3
+            r = dict(batches=len(lat),
+                     req_s=len(x) * len(lat) / float(np.sum(lat)),
+                     p50_ms=float(np.percentile(lat_ms, 50)),
+                     p99_ms=float(np.percentile(lat_ms, 99)))
+            perf[label].append(r)
+            print(f"[families] {family} {label} (repeat {rep + 1}/"
+                  f"{REPEATS}): {r['req_s']:.1f} req/s at bucket "
+                  f"{len(x)} over {r['batches']} batches, per-batch p50 "
+                  f"{r['p50_ms']:.4f} ms p99 {r['p99_ms']:.4f} ms ({smi})")
+    for label, reps in perf.items():
+        rps = [r["req_s"] for r in reps]
+        print(f"[families] {family} {label}: req/s {min(rps):.1f}-"
+              f"{max(rps):.1f} across {REPEATS} repeats")
+    return perf
+
+
+def _plane_major_costs(dev, B: int, C: int, n: int, L: int) -> None:
+    """What K1's plane-stack contract costs one RGB serving batch at
+    (B, C, n, n), beside its L fused hops (device times).  Between fused
+    layers the transposes cancel: the field a hop hands back is a view of
+    its plane-major slab, and the next hop's transpose of it is that slab
+    again (checked here).  So a batch pays one copy into slabs before
+    layer 0, one back before the final hop, and at every layer a C-fold
+    copy of the shared TF pair."""
+    gen = torch.Generator().manual_seed(77)
+    u = _cfield((B, C, n, n), gen, dev)
+    th = torch.rand((n, n), generator=gen).to(dev)
+    phi = torch.rand((C, n, n), generator=gen).to(dev)
+    gam = torch.full((C, n, n), GAMMA, device=dev)
+    slab = ops._plane_major(u, (C,), n, n)[0]
+    back = ops._from_plane_major(slab, C, B, (B,), (C,), n, n, False)
+    views = ops._plane_major(back, (C,), n, n)[0].data_ptr() == \
+        slab.data_ptr()
+    t_in = device_ms(lambda: ops._plane_major(u, (C,), n, n))
+    t_out = device_ms(lambda: back.reshape(-1, n, n))
+    t_tf = device_ms(lambda: (th.expand((C, n, n)).contiguous(),
+                              th.expand((C, n, n)).contiguous()))
+    with torch.no_grad():
+        t_hop = device_ms(lambda: ops.fused_spectral_hop(u, th, th, phi,
+                                                         gam))
+    copies = t_in + t_out + L * t_tf
+    print(f"[families] rgb plane-major copies of a batch at {B}x{C}x{n}x{n}"
+          f": slabs pass between layers as views {views}; into slabs "
+          f"{t_in * 1e3:.2f} us, back {t_out * 1e3:.2f} us, the TF pair "
+          f"C-fold {t_tf * 1e3:.2f} us a layer: {copies * 1e3:.2f} us beside "
+          f"{L} fused hops of {t_hop * 1e3:.2f} us ({copies / (L * t_hop):.1%}"
+          f")")
+
+
+def _family_rgb(dev, smi: str, profile) -> dict:
+    """donn-rgb at full width and depth: gamma calibrated, 3 training steps
+    on each engine through make_train_chunk, frozen f32/bf16/int8 serving
+    through InferenceEngine and MicroBatcher, each held against its CPU
+    copy; timing rows kernel path vs plain torch."""
+    cfg = dataclasses.replace(get_config("donn-rgb"), use_pallas=True)
+    L, C, K = cfg.depth, cfg.channels, cfg.num_classes
+    # scenes at the config's input size: what MicroBatcher admits
+    S = cfg.input_size
+    xs, ys = synth_rgb_scenes(4 * 32, seed=0, size=S)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    gamma = calibrate_gamma(model, params, xs[:8])
+    cfg = dataclasses.replace(cfg, gamma=gamma)
+    print(f"[families] donn-rgb (n={cfg.n}, {C} channels, {K} classes, "
+          f"depth {L}): gamma {get_config('donn-rgb').gamma} -> calibrated "
+          f"{gamma:.4f}")
+    per = family_launches(L, channels=C)
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    xs3 = np.stack([xs[i * 32:(i + 1) * 32] for i in range(TRAIN_STEPS)])
+    ys3 = np.stack([ys[i * 32:(i + 1) * 32] for i in range(TRAIN_STEPS)])
+    opt = AdamW(lr=0.3)
+    trained = None
+    for engine in ("scan", "eager"):
+        ecfg = dataclasses.replace(cfg, engine=engine)
+        card_m = build_model(ecfg, device=dev)
+        cpu_m = build_model(ecfg, device="cpu")
+        _hold_step(f"donn-rgb {engine}: card vs the CPU copy",
+                   loss_and_grads(card_m, params, xs[:32], ys[:32], K),
+                   loss_and_grads(cpu_m, cpu_params, xs[:32], ys[:32], K))
+        chunk = make_train_chunk(card_m, opt, K)
+        chunk(params, opt.init(params), 0, xs3, ys3)  # plans, uploads
+        out = {}
+        got = _counted(lambda: out.update(
+            r=chunk(params, opt.init(params), 0, xs3, ys3)))
+        _hold_launches(f"donn-rgb {engine}, {TRAIN_STEPS} training steps "
+                       f"(per step {per[engine]})", got, per[engine],
+                       TRAIN_STEPS)
+        for k, v in got.items():
+            launches[k] += v
+        losses = out["r"][2].cpu().numpy()
+        want = make_train_chunk(cpu_m, opt, K)(
+            cpu_params, opt.init(cpu_params), 0, xs3, ys3)[2].numpy()
+        rel = float(np.max(np.abs(losses - want)) / np.max(np.abs(want)))
+        print(f"[families] donn-rgb {engine}: losses of {TRAIN_STEPS} steps "
+              f"{[round(float(v), 6) for v in losses]} vs the CPU copy's "
+              f"(rel {rel:.3e}, tol {SLICE_RTOL:g})")
+        if rel > SLICE_RTOL or not np.isfinite(losses).all():
+            raise AssertionError(f"donn-rgb {engine}: losses disagree")
+        if engine == "scan":
+            trained = out["r"][0]
+
+    # --- train -> freeze -> serve, f32/bf16/int8 planes, counted
+    model = build_model(cfg, device=dev)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_trained = tree_map(lambda t: t.cpu(), trained)
+    engines = {d: InferenceEngine(freeze(model, trained, plane_dtype=d,
+                                         device=dev),
+                                  buckets=(1, 8, 32), device=dev)
+               for d in ("float32", "bfloat16", "int8")}
+    for eng in engines.values():
+        eng.warmup()
+    x32 = synth_rgb_scenes(32, seed=7, size=S)[0]
+    singles = synth_rgb_scenes(64, seed=8, size=S)[0]
+    outs, mb_outs = {}, {}
+    batches0 = sum(e.stats["batches"] for e in engines.values())
+
+    def serve_all():
+        for d, eng in engines.items():
+            outs[d] = eng.infer(x32)
+            mb = MicroBatcher(eng, max_wait_ms=2.0)
+            futs = [mb.submit(x) for x in singles]
+            mb_outs[d] = np.stack([f.result(timeout=120) for f in futs])
+            if not mb.close() or mb.stats["served"] != len(singles):
+                raise AssertionError(f"MicroBatcher {d}: {mb.stats}")
+
+    got = _counted(serve_all)
+    nb = sum(e.stats["batches"] for e in engines.values()) - batches0
+    _hold_launches(f"donn-rgb serving, {nb} batches (per batch "
+                   f"{per['serve']})", got, per["serve"], nb)
+    for k, v in got.items():
+        launches[k] += v
+    for d in engines:
+        dep_cpu = freeze(cpu_model, cpu_trained, plane_dtype=d, device="cpu")
+        _hold_out(f"donn-rgb {d} planes, bucket 32", outs[d],
+                  dep_cpu.forward(torch.from_numpy(x32)).numpy(), True)
+        _hold_out(f"donn-rgb {d} planes, MicroBatcher", mb_outs[d],
+                  dep_cpu.forward(torch.from_numpy(singles)).numpy(), True)
+
+    plain = build_model(dataclasses.replace(cfg, use_pallas=False),
+                        device=dev)
+    plain_eng = InferenceEngine(freeze(plain, trained, device=dev),
+                                buckets=(32,), device=dev)
+    plain_eng.warmup()
+    perf = _serve_rows("donn-rgb", [("float32 kernels", engines["float32"]),
+                                    ("float32 use_pallas=False (plain "
+                                     "torch)", plain_eng)], x32, smi)
+    _plane_major_costs(dev, 32, C, cfg.n, L)
+    if profile:
+        p50 = min(r["p50_ms"] for r in perf["float32 kernels"])
+        _profile(lambda: engines["float32"].infer(x32), PROFILE_BATCHES, 1,
+                 "batch", profile + ".rgb", p50 * 1e3)
+    return {"launches": launches, "per": per}
+
+
+def _bce_grads(model, params, x, m):
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = bce_segmentation_loss(
+            model.apply(tree_unflatten(params, leaves), x, train=True), m)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), None, tree_unflatten(params, grads)
+
+
+def _family_seg(dev, smi: str, profile) -> dict:
+    """donn-seg at full width and depth: 3 AdamW steps of BCE on the
+    layer-normed intensity (the step written by hand, as the reference's
+    example does), held against the CPU copy; frozen f32 intensity maps
+    at bucket 32 against the CPU copy; timing rows."""
+    cfg = dataclasses.replace(get_config("donn-seg"), use_pallas=True)
+    L = cfg.depth
+    xs, ms = synth_seg(TRAIN_STEPS * 32, seed=0, size=cfg.n)
+    model = build_model(cfg, device=dev)
+    cpu_model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    per = family_launches(L, readout=False)
+    opt = AdamW(lr=0.05)
+
+    def steps(mdl, p, dev_):
+        state, losses = opt.init(p), []
+        for i in range(TRAIN_STEPS):
+            xb = torch.from_numpy(xs[i * 32:(i + 1) * 32]).to(dev_)
+            mb = torch.from_numpy(ms[i * 32:(i + 1) * 32]).to(dev_)
+            loss, _, grads = _bce_grads(mdl, p, xb, mb)
+            p, state = opt.update(grads, state, p, i)
+            losses.append(loss)
+        return p, torch.stack(losses)
+
+    x0 = torch.from_numpy(xs[:32])
+    m0 = torch.from_numpy(ms[:32])
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    _hold_step("donn-seg scan: BCE and d/dphase, card vs the CPU copy",
+               _bce_grads(model, params, x0.to(dev), m0.to(dev)),
+               _bce_grads(cpu_model, cpu_params, x0, m0))
+    steps(model, params, dev)  # plans, uploads
+    out = {}
+    got = _counted(lambda: out.update(r=steps(model, params, dev)))
+    _hold_launches(f"donn-seg scan, {TRAIN_STEPS} AdamW steps (per step "
+                   f"{per['scan']})", got, per["scan"], TRAIN_STEPS)
+    launches = dict(got)
+    trained, losses = out["r"]
+    want = steps(cpu_model, cpu_params, "cpu")[1].numpy()
+    losses = losses.cpu().numpy()
+    rel = float(np.max(np.abs(losses - want)) / np.max(np.abs(want)))
+    print(f"[families] donn-seg: BCE of {TRAIN_STEPS} steps "
+          f"{[round(float(v), 6) for v in losses]} vs the CPU copy's (rel "
+          f"{rel:.3e}, tol {SLICE_RTOL:g})")
+    if rel > SLICE_RTOL or not np.isfinite(losses).all():
+        raise AssertionError("donn-seg: losses disagree")
+
+    eng = InferenceEngine(freeze(model, trained, device=dev), buckets=(32,),
+                          device=dev)
+    eng.warmup()
+    x32 = synth_seg(32, seed=7, size=cfg.n)[0]
+    res = {}
+    got = _counted(lambda: res.update(out=eng.infer(x32)))
+    _hold_launches(f"donn-seg serving, 1 batch (per batch {per['serve']})",
+                   got, per["serve"], 1)
+    for k, v in got.items():
+        launches[k] += v
+    want = freeze(cpu_model, tree_map(lambda t: t.cpu(), trained),
+                  device="cpu").forward(torch.from_numpy(x32)).numpy()
+    if res["out"].shape != (32, cfg.n, cfg.n):
+        raise AssertionError(f"donn-seg: bad maps {res['out'].shape}")
+    _hold_out("donn-seg f32 intensity maps, bucket 32", res["out"], want,
+              False)
+    plain = build_model(dataclasses.replace(cfg, use_pallas=False),
+                        device=dev)
+    plain_eng = InferenceEngine(freeze(plain, trained, device=dev),
+                                buckets=(32,), device=dev)
+    plain_eng.warmup()
+    perf = _serve_rows("donn-seg", [("float32 kernels", eng),
+                                    ("float32 use_pallas=False (plain "
+                                     "torch)", plain_eng)], x32, smi)
+    if profile:
+        p50 = min(r["p50_ms"] for r in perf["float32 kernels"])
+        _profile(lambda: eng.infer(x32), PROFILE_BATCHES, 1, "batch",
+                 profile + ".seg", p50 * 1e3)
+    return {"launches": launches, "per": per}
+
+
+def _family_hetero(dev) -> dict:
+    """The repo's heterogeneous stack (hybrid-slm-printed: two fused
+    segments and one resample stitch): forward, backward and frozen
+    serving on the card, each held against its CPU copy."""
+    cfg = dataclasses.replace(HYBRID_SLM_PRINTED, use_pallas=True)
+    model = build_model(cfg, device=dev)
+    cpu_model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator(device=dev).manual_seed(2))
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    print(f"[families] {cfg.name}: segments {model.plan.segment_slices}, "
+          f"planes {[l.grid.n for l in model.layers]}")
+    xs, ys = synth_digits(32, seed=3)
+    x = torch.from_numpy(xs)
+    out = {}
+    launches = _counted(lambda: out.update(
+        fwd=model.apply(params, x.to(dev)),
+        grads=loss_and_grads(model, params, xs, ys, cfg.num_classes),
+        served=InferenceEngine(freeze(model, params, device=dev),
+                               buckets=(32,), device=dev).infer(xs)))
+    per = family_launches(cfg.depth)
+    want = {k: 2 * per["serve"][k] + per["scan"][k] for k in ops.KERNELS}
+    print(f"[families] {cfg.name}: launches of a forward, a training step "
+          f"and a frozen batch {launches} (expected {want})")
+    if launches != want:
+        raise AssertionError(f"{cfg.name}: the kernels did not run as "
+                             "counted")
+    _hold_out(f"{cfg.name} forward", out["fwd"].cpu().numpy(),
+              cpu_model.apply(cpu_params, x).numpy(), True)
+    _hold_step(f"{cfg.name}: card vs the CPU copy", out["grads"],
+               loss_and_grads(cpu_model, cpu_params, xs, ys,
+                              cfg.num_classes))
+    _hold_out(f"{cfg.name} frozen f32 serving", out["served"],
+              freeze(cpu_model, cpu_params, device="cpu").forward(x).numpy(),
+              True)
+    return {"launches": launches}
+
+
+def phase_families(dev, smi: str, profile) -> dict:
+    """The paper's advanced DONNs; returns each family's counted
+    launches."""
+    fams = {"rgb": _family_rgb(dev, smi, profile),
+            "seg": _family_seg(dev, smi, profile),
+            "hetero": _family_hetero(dev)}
+    # the CLI a user serves them with, at the configs' widths and depth
+    for fam, flag, width in (("rgb", "rgb", ["--n", "200", "--det-size",
+                                               "20"]),
+                             ("seg", "segmentation", ["--n", "350"])):
+        rps = []
+        got = _counted(lambda: rps.append(serve_donn.main(
+            ["--family", flag, "--depth", "5", "--distance", "0.30",
+             "--use-pallas", "--requests", "64", "--device", "cuda"]
+            + width)))
+        print(f"[families] serve_donn --family {flag}: launches {got}")
+        if not (rps[0] > 0 and got["conj_phase_scale"]
+                and got["phase_tf_apply"]
+                and bool(got["intensity_readout"]) == (fam == "rgb")):
+            raise AssertionError(f"serve_donn --family {flag}")
+        for k, v in got.items():
+            fams[fam]["launches"][k] += v
+    for name in ("conj_phase_scale", "phase_tf_apply", "intensity_readout",
+                 "phase_apply"):
+        if not fams["rgb"]["launches"][name]:
+            raise AssertionError(f"donn-rgb never launched {name}")
+    return {f: r["launches"] for f, r in fams.items()}
+
+
 def _lm_serve(arch: str, runs: int = 2) -> dict:
     """``serve.main`` on the card ``runs`` times with the launch counters
     reset just before each; returns the served tokens and the launches."""
@@ -1387,7 +1787,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="FILE", default=None,
                     help="write torch.profiler tables of the serving path "
-                         "(FILE), a training chunk (FILE.train) and a "
+                         "(FILE), a training chunk (FILE.train), RGB and "
+                         "segmentation serving (FILE.rgb, FILE.seg) and a "
                          "qwen1.5-4b decode step at 8 slots (FILE.lm)")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
@@ -1400,6 +1801,7 @@ def main(argv=None) -> int:
     launches = phase_slice(dev, smi, args.profile)
     train = phase_train(dev, smi, args.profile)
     phase_cli()
+    families = phase_families(dev, smi, args.profile)
     lm_windows = phase_lm(dev, smi, args.profile)
     kernels = []
     for name in ops.KERNELS:
@@ -1409,9 +1811,11 @@ def main(argv=None) -> int:
         row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # the main path: DONN serving and training, LM serving; the LM
-            # holds (K6 on q/k, K7 on the mixer tensors) apart
+            # the main path: DONN serving and training, the advanced
+            # families, LM serving; the LM holds (K6 on q/k, K7 on the
+            # mixer tensors) apart
             "launches": (launches[name] + train["counted"][name]
+                         + sum(f[name] for f in families.values())
                          + sum(v for w, v in lm_launches.items()
                                if w.startswith("lm_serve"))),
             "hold_launches": sum(v for w, v in lm_launches.items()
@@ -1419,6 +1823,7 @@ def main(argv=None) -> int:
             "serve_launches": launches[name],
             "train_launches": {eng: c[name]
                                for eng, c in train["per_step"].items()},
+            "family_launches": {f: c[name] for f, c in families.items()},
             "lm_launches": lm_launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -13,10 +13,14 @@ dict instead of the JAX package's registry (which lives in
 - donn-seg      : the segmentation DONN with optical skip + LN (Fig. 13).
 - donn-xl-500   : the large-scale emulation workload (Fig. 10): 500^2, 30 layers.
 
-The serving slice builds the classify configs; ``donn-rgb`` and
-``donn-seg`` register here and build with the RGB/segmentation slice.
+Beside them, ``HYBRID_SLM_PRINTED`` is the repo's one heterogeneous
+stack: ``examples/advanced_donns.py``'s "hybrid-slm-printed" (three
+64-px, 36 um, 256-level SLM layers 0.10 m apart feeding two 48-px, 48 um,
+4-level printed layers 0.05 m apart, 0.06 m to the detector), spelled as
+the ``DONNConfig`` the reference's DSL assembles for it (the port has no
+DSL yet).  Its plan is two fused segments and one resample stitch.
 """
-from repro_torch.core.config import DONNConfig
+from repro_torch.core.config import DONNConfig, LayerSpec
 
 CONFIGS = {
     "donn-mnist-3l": (
@@ -92,3 +96,16 @@ def get_config(name: str, smoke: bool = False) -> DONNConfig:
         raise KeyError(f"unknown config {name!r}; have {sorted(CONFIGS)}")
     full, small = CONFIGS[name]
     return small if smoke else full
+
+_SLM = LayerSpec(distance=0.10, approximation="rs", codesign="qat",
+                 device_levels=256, response_gamma=1.0, size=64,
+                 pixel_size=36e-6)
+_PRINTED = LayerSpec(distance=0.05, approximation="rs", codesign="qat",
+                     device_levels=4, response_gamma=1.0, size=48,
+                     pixel_size=48e-6)
+HYBRID_SLM_PRINTED = DONNConfig(
+    name="hybrid-slm-printed", n=64, pixel_size=36e-6, wavelength=532e-9,
+    depth=5, distance=0.06, num_classes=10, det_size=8, codesign="qat",
+    device_levels=256, response_gamma=1.0, layer_norm=False,
+    layers=(_SLM,) * 3 + (_PRINTED,) * 2,
+)

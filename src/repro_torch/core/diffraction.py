@@ -4,9 +4,9 @@ The static geometry — sampling grids and transfer functions — is numpy,
 copied from ``repro.core.diffraction`` so the port imports nothing of the
 JAX package; tests/test_torch_geometry.py pins the planes bit-equal to the
 reference's.  The field operators (``propagate_tf``, pad/crop,
-``intensity``) are torch, on whatever device the field lives on.  FFTs are
-``torch.fft`` (cuFFT on the card), as the reference leaves its FFTs to XLA
-outside any Pallas kernel.
+``intensity``, ``resample_field``) are torch, on whatever device the
+field lives on.  FFTs are ``torch.fft`` (cuFFT on the card), as the
+reference leaves its FFTs to XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.core.cache import lru_get, lru_put
 
 RS = "rs"
 FRESNEL = "fresnel"
@@ -132,20 +134,72 @@ def fraunhofer(u: torch.Tensor, grid: Grid, z: float,
         fraunhofer_quad(grid, z, wavelength)).to(u.device)
 
 
+# bounded LRU, the discipline of the propagation TF/plan caches
+_RESAMPLE_CACHE: dict = {}
+_RESAMPLE_CACHE_MAX = 256
+
+
+def resample_matrix(grid_in: Grid, grid_out: Grid) -> np.ndarray:
+    """Bilinear field-resampling operator between two plane grids.
+
+    The (n_out, n_in) separable 1-D interpolation matrix ``A`` with
+    ``u_out = A @ u_in @ A.T`` over *physical* coordinates (both grids
+    centered; samples outside the input aperture read zero).  For equal
+    pixel sizes and n_in, n_out of one parity it is an exact centered
+    crop / zero-pad (0/1 entries).  Static numpy geometry, cached
+    process-wide (LRU).
+    """
+    key = (grid_in.n, float(grid_in.pixel_size),
+           grid_out.n, float(grid_out.pixel_size))
+    hit = lru_get(_RESAMPLE_CACHE, key)
+    if hit is not None:
+        return hit
+    # output sample positions in input index space
+    t = (grid_out.coords() / grid_in.pixel_size) + (grid_in.n - 1) / 2.0
+    i0 = np.floor(t).astype(np.int64)
+    w = (t - i0).astype(np.float64)
+    A = np.zeros((grid_out.n, grid_in.n), np.float64)
+    rows = np.arange(grid_out.n)
+    for idx, wt in ((i0, 1.0 - w), (i0 + 1, w)):
+        ok = (idx >= 0) & (idx < grid_in.n)
+        A[rows[ok], idx[ok]] += wt[ok]
+    A = A.astype(np.float32)
+    lru_put(_RESAMPLE_CACHE, key, A, _RESAMPLE_CACHE_MAX)
+    return A
+
+
+def _is_exact_crop_pad(grid_in: Grid, grid_out: Grid) -> bool:
+    """True when the stitch degenerates to a centered crop / zero-pad:
+    equal pitch and same parity, so the centered sample grids coincide."""
+    return (float(grid_in.pixel_size) == float(grid_out.pixel_size)
+            and (grid_in.n - grid_out.n) % 2 == 0)
+
+
 def resample_field(u: torch.Tensor, grid_in: Grid,
                    grid_out: Grid) -> torch.Tensor:
-    """Resample field(s) onto ``grid_out``: the identity on equal grids.
+    """Resample field(s) (..., n_in, n_in) onto ``grid_out`` (bilinear).
 
-    Uniform stacks (every plane on the system grid) only ever take the
-    identity; stitches between unequal grids come with the heterogeneous
-    slice.
+    The identity on equal grids; pure slicing / zero-padding for exact
+    crop/pad stitches; otherwise two real contractions with
+    ``resample_matrix`` (real and imaginary parts apart), as the reference
+    runs them outside any kernel.
     """
     if grid_in == grid_out:
         return u
-    raise NotImplementedError(
-        "resampling between unequal grids comes with the RGB/segmentation/"
-        "heterogeneous slice"
-    )
+    if _is_exact_crop_pad(grid_in, grid_out):
+        n_in, n_out = grid_in.n, grid_out.n
+        if n_in >= n_out:
+            off = (n_in - n_out) // 2
+            return u[..., off:off + n_out, off:off + n_out]
+        lo = (n_out - n_in) // 2
+        hi = n_out - n_in - lo
+        return F.pad(u, (lo, hi, lo, hi))
+    A = torch.from_numpy(resample_matrix(grid_in, grid_out)).to(u.device)
+    if u.is_complex():
+        re = torch.einsum("oi,...ij,pj->...op", A, u.real, A)
+        im = torch.einsum("oi,...ij,pj->...op", A, u.imag, A)
+        return torch.complex(re, im)
+    return torch.einsum("oi,...ij,pj->...op", A, u, A)
 
 
 def intensity(u: torch.Tensor) -> torch.Tensor:

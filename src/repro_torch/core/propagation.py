@@ -28,14 +28,23 @@ The port of ``repro.core.propagation`` for serving and training:
     response and ``gamma * exp(j phi)`` once at deploy time, optionally in
     bf16 or per-layer-scaled int8 storage dequantized to f32 before any
     kernel sees them.
+5.  **Channels** — phase stacks may be ``(L, N, N)`` or per-channel
+    ``(L, C, N, N)`` (the RGB DONN); fields then keep their channel axis,
+    ``(B, C, N, N)``, and every kernel site takes the (C, N, N) plane
+    stack of its layer, as the reference's scan does.
+6.  **Segmented plans** — a heterogeneous config (per-layer ``LayerSpec``
+    overrides surviving canonicalization) builds a ``SegmentedPlan``:
+    maximal runs of layers sharing plane size, pitch, approximation and
+    codesign device are each one ``PropagationPlan`` segment, stitched by
+    field resampling at grid boundaries (``forward(pre=...)``).
 
-Heterogeneous (segmented) plans, external transfer planes and layer masks
-for batched DSE emulation, rematerialization and rng-driven codesign come
-with later slices; asking for a heterogeneous plan, ``remat`` or rng
-codesign raises ``NotImplementedError``.
+External transfer planes and layer masks for batched DSE emulation,
+rematerialization and rng-driven codesign come with later slices; asking
+for ``remat`` or rng codesign raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -176,14 +185,19 @@ class PropagationPlan:
         codesign_mode: str = "none",
         use_pallas: bool = False,
         tf_dtype: str = "float32",
+        final_hop: bool = True,
     ):
+        """``final_hop=False`` builds an inner segment of a heterogeneous
+        stack: every gap is a modulated layer's and ``propagate_final`` is
+        unavailable (the next segment owns the following hop)."""
         if method not in df.METHODS:
             raise ValueError(f"unknown method {method!r}")
         if tf_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown tf_dtype {tf_dtype!r}")
         self.grid = grid
         self.gaps = tuple(float(g) for g in gaps)
-        self.depth = len(self.gaps) - 1
+        self.final_hop = final_hop
+        self.depth = len(self.gaps) - 1 if final_hop else len(self.gaps)
         self.wavelength = wavelength
         self.method = method
         self.band_limit = band_limit
@@ -207,7 +221,7 @@ class PropagationPlan:
         self._np = {
             k: np.stack([p[k] for p in planes]) for k in self._plane_keys
         }
-        self._dev: dict = {}  # (name, device) -> uploaded constant
+        self._dev: dict = {}  # uploaded constants and gamma planes
 
     # --- constants ---
     def _const(self, name: str, dev: torch.device) -> torch.Tensor:
@@ -218,6 +232,17 @@ class PropagationPlan:
             if self.tf_dtype != "float32":
                 # storage dtype only: every consumer upcasts to f32
                 arr = arr.to(torch.bfloat16)
+            self._dev[key] = arr
+        return arr
+
+    def _gamma_plane(self, shape, dev: torch.device) -> torch.Tensor:
+        """The constant f32 ``gamma`` plane of one shape on ``dev``: the
+        amplitude of every modulation under ``use_pallas``, built once."""
+        key = ("_gamma", tuple(shape), str(dev))
+        arr = self._dev.get(key)
+        if arr is None:
+            arr = torch.full(tuple(shape), self.gamma, dtype=torch.float32,
+                             device=dev)
             self._dev[key] = arr
         return arr
 
@@ -238,9 +263,8 @@ class PropagationPlan:
         """gamma * u * exp(j phi)."""
         if not self.use_pallas:
             return u * (self.gamma * torch.exp(1j * phi.to(torch.complex64)))
-        amp = torch.full(phi.shape, self.gamma, dtype=phi.dtype,
-                         device=phi.device)
-        return kops.phase_tf_apply(u, phi, amp)
+        return kops.phase_tf_apply(u, phi,
+                                   self._gamma_plane(phi.shape, phi.device))
 
     def _fused_layer(self, u: torch.Tensor, tf_pair, mod=None,
                      phi=None) -> torch.Tensor:
@@ -250,8 +274,7 @@ class PropagationPlan:
         th_h, amp_h = (p.float() for p in tf_pair)
         if phi is not None:
             th_m = phi
-            amp_m = torch.full(phi.shape, self.gamma, dtype=torch.float32,
-                               device=phi.device)
+            amp_m = self._gamma_plane(phi.shape, phi.device)
         else:
             th_m, amp_m = mod
         return kops.fused_spectral_hop(u, th_h, amp_h, th_m, amp_m)
@@ -269,7 +292,8 @@ class PropagationPlan:
                           plane_dtype: str = "float32") -> tuple:
         """Deploy-time fold: device response + ``gamma*exp(j phi)`` once.
 
-        ``phis`` is the (L, N, N) phase stack.  The codesign response is
+        ``phis`` is the (L, N, N) or (L, C, N, N) phase stack.  The
+        codesign response is
         resolved rng-free (``codesign.deployed_phase``) and the modulation
         is stored as a plane pair in the plan's convention: polar
         ``(theta, amp)`` under ``use_pallas``, cartesian ``(mr, mi)``
@@ -278,8 +302,7 @@ class PropagationPlan:
         """
         eff = self._codesign_stack(phis)
         if self.use_pallas:
-            pair = (eff, torch.full(eff.shape, self.gamma, dtype=eff.dtype,
-                                    device=eff.device))
+            pair = (eff, self._gamma_plane(eff.shape, eff.device))
         else:
             m = self.gamma * torch.exp(1j * eff.to(torch.complex64))
             pair = (m.real, m.imag)
@@ -314,15 +337,19 @@ class PropagationPlan:
 
     def forward(self, phis: Optional[torch.Tensor], u: torch.Tensor,
                 start: int = 0, stop: Optional[int] = None,
-                frozen=None) -> torch.Tensor:
+                frozen=None, pre=None) -> torch.Tensor:
         """Run layers [start, stop) over the field u.
 
-        ``phis`` is the full (L, N, N) phase stack (codesign resolves on the
-        whole stack).  ``frozen`` takes the precomputed modulation planes
-        from ``frozen_modulation`` instead — the deployment fast path, which
-        skips the codesign entirely (``phis`` is then None).
+        ``phis`` is the full (L, N, N) or (L, C, N, N) phase stack (codesign
+        resolves on the whole stack).  ``frozen`` takes the precomputed
+        modulation planes from ``frozen_modulation`` instead — the
+        deployment fast path, which skips the codesign entirely (``phis``
+        is then None).  ``pre`` is applied to the incoming field first: the
+        boundary resample a ``SegmentedPlan`` stitches in.
         """
         stop = self.depth if stop is None else stop
+        if pre is not None:
+            u = pre(u)
         a, b = self._tf_pair(u.device)
         if frozen is not None:
             frozen = tuple(frozen)
@@ -343,6 +370,11 @@ class PropagationPlan:
 
     def propagate_final(self, u: torch.Tensor) -> torch.Tensor:
         """The last free-space hop (layer plane -> detector, no modulation)."""
+        if not self.final_hop:
+            raise ValueError(
+                "this plan is an inner segment (final_hop=False); the next "
+                "segment owns the following hop"
+            )
         a, b = self._tf_pair(u.device)
         return self._hop(u, (a[self.depth], b[self.depth]))
 
@@ -408,6 +440,137 @@ class PropagationPlan:
         return self.propagate_final(self.forward(phis, u))
 
 
+# --------------------------------------------------------------------------
+# Segmented plan (heterogeneous per-layer architectures)
+# --------------------------------------------------------------------------
+def segment_layers(resolved_layers) -> tuple:
+    """Group resolved ``LayerSpec``s into maximal fusable runs.
+
+    Consecutive layers sharing (size, pixel_size, approximation, codesign
+    device) form one segment; a boundary is cut wherever any of those
+    change.  Returns ``((start, stop), ...)`` global layer-index slices.
+    """
+    def seg_key(s):
+        return (s.size, s.pixel_size, s.approximation, s.codesign,
+                s.device_levels, s.response_gamma)
+
+    slices, start = [], 0
+    for i in range(1, len(resolved_layers)):
+        if seg_key(resolved_layers[i]) != seg_key(resolved_layers[i - 1]):
+            slices.append((start, i))
+            start = i
+    slices.append((start, len(resolved_layers)))
+    return tuple(slices)
+
+
+class SegmentedPlan:
+    """Forward pipeline for a *heterogeneous* diffractive stack.
+
+    Each maximal run of layers sharing (plane size, pitch, approximation,
+    codesign device) is one ``PropagationPlan`` segment (its fused hops
+    run K1 under ``use_pallas``); where adjacent segments live on
+    different grids the field is resampled at the boundary, inside the
+    next segment's ``forward`` (``pre=``).  Phase stacks are tuples, one
+    ``(L_k, ...)`` stack per segment (ragged across segments when plane
+    sizes differ); so are the frozen planes.
+    """
+
+    def __init__(self, cfg, gamma: float = 1.0):
+        cfg = cfg.canonical()
+        if cfg.layers is None:
+            raise ValueError("SegmentedPlan needs a heterogeneous config; "
+                             "use PropagationPlan for uniform stacks")
+        specs = cfg.resolved_layers()
+        self.cfg = cfg
+        self.gamma = float(gamma)
+        self.depth = len(specs)
+        self.slices = segment_layers(specs)
+        self.det_grid = df.Grid(cfg.n, cfg.pixel_size)
+        self.segments = []
+        for k, (lo, hi) in enumerate(self.slices):
+            s0 = specs[lo]
+            last = k == len(self.slices) - 1
+            gaps = [specs[i].distance for i in range(lo, hi)]
+            if last:
+                gaps.append(cfg.gap_distances()[-1])
+            self.segments.append(PropagationPlan(
+                df.Grid(s0.size, s0.pixel_size),
+                gaps,
+                cfg.wavelength,
+                method=s0.approximation,
+                band_limit=cfg.band_limit,
+                pad=cfg.pad,
+                gamma=gamma,
+                device=cd.device_for_layer(s0.codesign, s0.device_levels,
+                                           s0.response_gamma),
+                codesign_mode=s0.codesign,
+                use_pallas=cfg.use_pallas,
+                tf_dtype=cfg.tf_dtype,
+                final_hop=last,
+            ))
+        self.input_grid = self.segments[0].grid
+        self.layer_grids = tuple(df.Grid(s.size, s.pixel_size) for s in specs)
+
+    @property
+    def segment_slices(self) -> tuple:
+        return self.slices
+
+    def stack_phases(self, phases) -> tuple:
+        """Per-layer phase arrays -> per-segment stacks (a ragged tuple)."""
+        phases = list(phases)
+        if len(phases) != self.depth:
+            raise ValueError(f"expected {self.depth} phase maps, "
+                             f"got {len(phases)}")
+        return tuple(torch.stack(phases[lo:hi]) for lo, hi in self.slices)
+
+    def frozen_modulation(self, phis, plane_dtype: str = "float32") -> tuple:
+        """One frozen plane tuple per segment, in segment order (int8
+        scales stay per layer within each segment)."""
+        return tuple(seg.frozen_modulation(p, plane_dtype)
+                     for seg, p in zip(self.segments, phis))
+
+    def forward(self, phis, u: torch.Tensor, start: int = 0,
+                stop: Optional[int] = None, frozen=None) -> torch.Tensor:
+        """Run global layers [start, stop); ``phis`` is the per-segment
+        tuple from ``stack_phases`` (or ``frozen`` the per-segment frozen
+        planes).  The incoming field lives on the grid of layer
+        ``start - 1`` (the input grid when start == 0); the returned field
+        on the grid of layer ``stop - 1``."""
+        stop = self.depth if stop is None else stop
+        cur = self.layer_grids[start - 1] if start > 0 else self.input_grid
+        for k, (lo, hi) in enumerate(self.slices):
+            a, b = max(lo, start), min(hi, stop)
+            if a >= b:
+                continue
+            seg = self.segments[k]
+            stitch = None
+            if seg.grid != cur:
+                stitch = functools.partial(df.resample_field, grid_in=cur,
+                                           grid_out=seg.grid)
+            if frozen is not None:
+                u = seg.forward(None, u, start=a - lo, stop=b - lo,
+                                frozen=frozen[k], pre=stitch)
+            else:
+                u = seg.forward(phis[k], u, start=a - lo, stop=b - lo,
+                                pre=stitch)
+            cur = seg.grid
+        return u
+
+    def propagate_final(self, u: torch.Tensor) -> torch.Tensor:
+        """The last free-space hop (on the last layer's grid), then the
+        stitch onto the detector grid if it differs."""
+        u = self.segments[-1].propagate_final(u)
+        return df.resample_field(u, self.segments[-1].grid, self.det_grid)
+
+    def apply(self, phis, u: torch.Tensor, rng=None,
+              frozen=None) -> torch.Tensor:
+        if rng is not None:
+            raise NotImplementedError(
+                "rng-driven codesign comes with the DSE/codesign slice"
+            )
+        return self.propagate_final(self.forward(phis, u, frozen=frozen))
+
+
 def device_spec_from_config(cfg) -> Optional[cd.DeviceSpec]:
     """The (frozen, hashable) codesign device a config describes, or None."""
     return cd.device_for_layer(cfg.codesign, cfg.device_levels,
@@ -435,14 +598,15 @@ def plan_cache_key(cfg, gamma: float) -> tuple:
             bool(cfg.use_pallas), cfg.scan_unroll, cfg.tf_dtype, cfg.remat)
 
 
-def plan_from_config(cfg, gamma: float) -> PropagationPlan:
+def plan_from_config(cfg, gamma: float):
     """Build (or fetch) the plan for a config — memoized per geometry tuple.
 
+    Uniform configs get a ``PropagationPlan``; heterogeneous configs
+    (``cfg.layers`` surviving canonicalization) a ``SegmentedPlan``.
     Physically invalid geometry raises ``PhysicsValidationError`` before
-    any plane is built.  Heterogeneous configs (``cfg.layers`` surviving
-    canonicalization) need the segmented plan of a later slice, and
-    ``remat`` other than ``"none"`` (``torch.utils.checkpoint``) waits for
-    its own slice: both raise rather than run without.
+    any plane is built.  ``remat`` other than ``"none"``
+    (``torch.utils.checkpoint``) waits for its own slice and raises rather
+    than run without.
     """
     if cfg.remat != "none":
         raise NotImplementedError(
@@ -456,10 +620,9 @@ def plan_from_config(cfg, gamma: float) -> PropagationPlan:
     physics.check_config(cfg)
     cfg = cfg.canonical()
     if cfg.layers is not None:
-        raise NotImplementedError(
-            "heterogeneous stacks (SegmentedPlan) come with the "
-            "RGB/segmentation/heterogeneous slice"
-        )
+        plan = SegmentedPlan(cfg, gamma)
+        lru_put(_PLAN_CACHE, key, plan, _PLAN_CACHE_MAX)
+        return plan
     plan = PropagationPlan(
         df.Grid(cfg.n, cfg.pixel_size),
         cfg.gap_distances(),

@@ -1,9 +1,10 @@
 """DONN training utilities (LightRidge `lr.train.utils`), PyTorch side.
 
-The port of ``repro.core.train_utils`` for the classify family.  Loss per
-the paper (§2.1): L = || softmax(I) - onehot(t) ||_2^2 over the per-class
-detector intensities I.  Also accuracy, detector-noise injection (Fig. 7)
-and the training drivers:
+The port of ``repro.core.train_utils``.  Loss per the paper (§2.1): L =
+|| softmax(I) - onehot(t) ||_2^2 over the per-class detector intensities
+I (the classify and RGB families; RGB batches are (B, C, h, w) images).
+Also accuracy, detector-noise injection (Fig. 7), the segmentation DONN's
+per-pixel BCE and IoU, and the training loops:
 
 - ``make_train_step``: one batch, (params, opt_state, step, xb, yb) ->
   (params, opt_state, loss, acc); gradients by ``torch.autograd.grad``
@@ -23,8 +24,9 @@ eager PyTorch compiles nothing, so the port has no counterpart.  Nor does
 it donate buffers (the reference's ``donate``): updates return new
 tensors and never write the caller's.  Checkpoint rollback (``ckpt_dir``,
 ``ckpt_every``, ``max_rollbacks``) comes with the persistence slice,
-rng-driven codesign (``needs_rng``, ``rng``) with the DSE/codesign slice,
-and the segmentation loss and IoU with the segmentation slice.
+and rng-driven codesign (``needs_rng``, ``rng``) with the DSE/codesign
+slice.  The segmentation DONN trains through a step written by hand on
+``bce_segmentation_loss``, as the reference's example does.
 """
 from __future__ import annotations
 
@@ -66,6 +68,22 @@ def add_detector_noise(logits_or_intensity: torch.Tensor,
     noise = torch.rand(x.shape, generator=generator, dtype=x.dtype,
                        device=generator.device).to(x.device)
     return x + scale * noise
+
+
+def bce_segmentation_loss(intensity: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Per-pixel BCE on normalized intensity (segmentation DONN)."""
+    logits = intensity  # already layer-normed in train mode
+    return torch.mean(torch.clamp_min(logits, 0.0) - logits * mask
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def iou(intensity: torch.Tensor, mask: torch.Tensor,
+        thresh: float = 0.0) -> torch.Tensor:
+    pred = (intensity > thresh).to(torch.float32)
+    inter = torch.sum(pred * mask, dim=(-2, -1))
+    union = torch.sum(torch.maximum(pred, mask), dim=(-2, -1))
+    return torch.mean(inter / torch.clamp_min(union, 1.0))
 
 
 @dataclasses.dataclass

@@ -1,13 +1,18 @@
 """Deterministic procedural digits (offline MNIST stand-in), numpy.
 
-A copy of ``synth_digits``, ``batch_iterator`` and their helpers from
-``repro.data.synthetic``, so the port imports nothing of the JAX package;
-tests/test_torch_train.py pins the arrays byte-equal to the reference's.
-Pure functions of (seed, index): restarts are bitwise reproducible.
+A copy of ``synth_digits``, ``synth_rgb_scenes``, ``synth_seg``,
+``batch_iterator`` and their helpers from ``repro.data.synthetic``, so the
+port imports nothing of the JAX package; tests/test_torch_train.py and
+tests/test_torch_families.py pin the arrays byte-equal to the
+reference's.  Pure functions of (seed, index): restarts are bitwise
+reproducible.
 
 - ``synth_digits``: 10-class glyph dataset at 28x28. Classes are
   parametric stroke patterns (bars/crosses/rings/corners...) with
   per-sample jitter, thickness and noise.
+- ``synth_rgb_scenes``: 6-class RGB compositions (the RGB DONN, Fig. 12).
+- ``synth_seg``: gray scenes with binary "building" masks (the
+  segmentation DONN, Fig. 13).
 - ``batch_iterator``: infinite shuffled batches, shardable across hosts.
 """
 from __future__ import annotations
@@ -74,6 +79,64 @@ def synth_digits(
     if binarize:
         xs = (xs > 0.5).astype(np.float32)
     return xs, ys
+
+
+# ------------------------------------------------------------ rgb scenes ---
+def synth_rgb_scenes(
+    num: int, seed: int = 0, size: int = 64, num_classes: int = 6
+) -> tuple[np.ndarray, np.ndarray]:
+    """(num, 3, size, size) RGB compositions; class = dominant layout/palette."""
+    xs = np.empty((num, 3, size, size), np.float32)
+    ys = np.empty((num,), np.int32)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
+    for i in range(num):
+        r = _rng(seed, i, 7)
+        cls = int(r.integers(0, num_classes))
+        base = r.uniform(0.05, 0.2, (3, 1, 1)).astype(np.float32)
+        img = np.broadcast_to(base, (3, size, size)).copy()
+        ch = cls % 3  # dominant channel
+        if cls < 3:  # horizon split (sky/ground)
+            h = r.uniform(0.3, 0.7)
+            img[ch] += (yy < h) * r.uniform(0.5, 0.9)
+            img[(ch + 1) % 3] += (yy >= h) * r.uniform(0.3, 0.6)
+        else:  # radial blob scene
+            cx, cy = r.uniform(0.3, 0.7, 2)
+            rad = np.hypot(xx - cx, yy - cy)
+            img[ch] += np.exp(-(rad**2) / r.uniform(0.02, 0.08))
+        img += r.uniform(0, 0.08, img.shape).astype(np.float32)
+        xs[i] = np.clip(img, 0, 1)
+        ys[i] = cls
+    return xs, ys
+
+
+# ---------------------------------------------------------- segmentation ---
+def synth_seg(
+    num: int, seed: int = 0, size: int = 64
+) -> tuple[np.ndarray, np.ndarray]:
+    """(num, size, size) gray scenes + binary 'building' masks (num,size,size)."""
+    xs = np.empty((num, size, size), np.float32)
+    ms = np.empty((num, size, size), np.float32)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for i in range(num):
+        r = _rng(seed, i, 13)
+        img = r.uniform(0.0, 0.25, (size, size)).astype(np.float32)
+        mask = np.zeros((size, size), np.float32)
+        for _ in range(int(r.integers(1, 4))):  # rectangular "buildings"
+            w = int(r.integers(size // 8, size // 3))
+            h = int(r.integers(size // 6, size // 2))
+            x0 = int(r.integers(0, size - w))
+            y0 = int(r.integers(size // 4, size - h))
+            img[y0 : y0 + h, x0 : x0 + w] = r.uniform(0.6, 1.0)
+            mask[y0 : y0 + h, x0 : x0 + w] = 1.0
+        # distractor circles (bright but NOT buildings)
+        for _ in range(int(r.integers(0, 3))):
+            cx, cy = r.integers(0, size, 2)
+            rad = int(r.integers(2, size // 10))
+            circ = (xx - cx) ** 2 + (yy - cy) ** 2 < rad * rad
+            img[circ] = r.uniform(0.5, 0.9)
+        xs[i] = np.clip(img, 0, 1)
+        ms[i] = mask
+    return xs, ms
 
 
 def batch_iterator(xs, ys, batch: int, seed: int = 0, host_id: int = 0,

@@ -18,7 +18,8 @@ dtype (f32 or bf16) for K6, float32 for K7.
 
 Gradients: each public function runs through a ``torch.autograd.Function``
 with the reference's custom VJP (``_PhaseTFApply``, ``_FusedHop``,
-``_Readout``, ``_PhaseApply``, ``_ComplexMul``, ``_Rope``); K7 is forward
+``_Readout``, ``_PhaseApply``, ``_ComplexMul``, ``_Rope``;
+``channel_intensity_readout`` is K3 then a channel sum); K7 is forward
 only, as in the reference.  Their forward and backward dispatch by
 device like the raw wrappers, so on the card the backward launches the
 kernels (K2 for the TF multiply and the hop, K4 for the eager
@@ -526,6 +527,16 @@ def intensity_readout(u, masks):
     H, W = u.shape[-2:]
     out = _Readout.apply(u.reshape(-1, H, W), masks)
     return out.reshape(tuple(u.shape[:-2]) + (masks.shape[0],))
+
+
+def channel_intensity_readout(u, masks):
+    """(..., C, H, W) multi-channel fields + (K, H, W) masks -> (..., K).
+
+    The RGB detector (``ops.channel_intensity_readout``): K3 over the
+    (B*C) field rows, then the incoherent sum over the channels.  No new
+    kernel and no atomics, so a retried batch stays bit-identical.
+    """
+    return intensity_readout(u, masks).sum(dim=-2)
 
 
 def phase_apply(u, phi, gamma: float = 1.0):

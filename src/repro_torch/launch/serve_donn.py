@@ -1,13 +1,16 @@
 """DONN serving launcher on the card: train, freeze, serve a request stream.
 
-The port of ``repro.launch.serve_donn`` for ``--family classify``: builds
-a DONN with random phases from ``--seed``, optionally quick-trains it on
-the synthetic digits (``--train-steps N``: ``synth_digits(512, seed)``,
-batch 32, AdamW at lr 0.3, 8 steps per chunk, as the reference), freezes
-it into a ``DeployedDONN`` (codesign response + modulation planes folded
-once), warms every bucket, then drives a synthetic request load through
-the micro-batching dispatcher and reports requests/sec plus latency
-percentiles, and the shed/expired counts when the resilience knobs engage.
+The port of ``repro.launch.serve_donn``: builds a DONN of ``--family``
+classify, rgb (3 channels) or segmentation (optical skip from layer 0,
+train-time layer norm) with random phases from ``--seed``, optionally
+quick-trains a classify model on the synthetic digits (``--train-steps
+N``: ``synth_digits(512, seed)``, batch 32, AdamW at lr 0.3, 8 steps per
+chunk, classify only, as the reference), freezes it into a
+``DeployedDONN`` (codesign response + modulation planes folded once),
+warms every bucket, then drives a synthetic request load — (n, n)
+images, (3, n, n) for rgb — through the micro-batching dispatcher and
+reports requests/sec plus latency percentiles, and the shed/expired
+counts when the resilience knobs engage.
 
 The flags are the reference's.  Artifacts (``--artifact``/
 ``--save-artifact``), multi-device dispatch and the replica fleet come
@@ -43,16 +46,17 @@ from repro_torch.runtime.resilience import (
 
 
 def build_cfg(args) -> DONNConfig:
-    if args.family != "classify":
-        raise NotImplementedError(
-            f"--family {args.family} comes with the RGB/segmentation slice"
-        )
-    return DONNConfig(
+    kw = dict(
         name=f"serve-{args.family}", n=args.n, depth=args.depth,
         distance=args.distance, det_size=args.det_size,
         codesign=args.codesign, response_gamma=args.response_gamma,
         use_pallas=args.use_pallas,
     )
+    if args.family == "rgb":
+        kw["channels"] = 3
+    elif args.family == "segmentation":
+        kw.update(segmentation=True, skip_from=0, layer_norm=True)
+    return DONNConfig(**kw)
 
 
 def _refuse_later_slices(args) -> None:
@@ -114,7 +118,7 @@ def main(argv=None):
     cfg = build_cfg(args)
     model = build_model(cfg, device=device)
     params = model.init(torch.Generator().manual_seed(args.seed))
-    if args.train_steps > 0:
+    if args.train_steps > 0 and args.family == "classify":
         from repro_torch.core.train_utils import train_classifier
         from repro_torch.data.synthetic import batch_iterator, synth_digits
 
@@ -140,7 +144,8 @@ def main(argv=None):
 
     rng = np.random.default_rng(args.seed)
     n = cfg.input_size
-    reqs = [rng.random((n, n), dtype=np.float32)
+    shape = ((cfg.channels, n, n) if deployed.family == "multi" else (n, n))
+    reqs = [rng.random(shape, dtype=np.float32)
             for _ in range(args.requests)]
     mb = MicroBatcher(engine, max_wait_ms=args.max_wait_ms,
                       max_queue=args.max_queue or None,

@@ -1,14 +1,19 @@
 """Deployment inference engine: frozen DONNs served on the card.
 
-The port of ``repro.runtime.inference`` for the classify family:
+The port of ``repro.runtime.inference`` for the three DONN families:
+classify (``"cls"``), RGB multi-channel (``"multi"``) and segmentation
+with the optical skip (``"seg"``), on uniform and heterogeneous
+(segmented-plan) stacks.
 
 1.  **Frozen artifact** — ``freeze(model, params)`` resolves the codesign
     device response once and precomputes the ``gamma * exp(j theta)``
-    modulation planes per layer (``PropagationPlan.frozen_modulation``),
-    in f32, bf16 or int8 storage.  Per-request work is then the FFT hops
+    modulation planes per layer (``frozen_modulation`` of the plan), in
+    f32, bf16 or int8 storage.  Per-request work is then the FFT hops
     plus the hand-written kernels (``use_pallas``): two K1 passes per
     layer, K2 on the final hop (and on layer 0 under ``rfft_first``), K3
-    for the detector readout.
+    for the detector readout (over the B*C channel rows for RGB; none for
+    the segmentation family, which serves intensity maps).  Served
+    outputs equal ``model.apply`` at eval bit for bit.
 2.  **Bucketed serving** — request batches pad to the nearest bucket
     (``repro_torch.data.pipeline``); ``warmup`` runs every bucket once at
     deploy time (kernel build, cuFFT plans), so the first request finds
@@ -20,9 +25,9 @@ The port of ``repro.runtime.inference`` for the classify family:
     (``DeadlineExceededError``), submit-time validation and group
     bisection.
 
-Multi-device dispatch (``mesh_devices``/``model_devices`` above 1), the
-RGB and segmentation families and serialized artifacts come with later
-slices and raise ``NotImplementedError``.
+Multi-device dispatch (``mesh_devices``/``model_devices`` above 1) and
+serialized artifacts come with later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,9 +39,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import models as md
 from repro_torch.core import propagation as pp
 from repro_torch.core.laser import data_to_cplex, data_to_real
-from repro_torch.core.models import DONN
 from repro_torch.data.pipeline import bucket_for, pad_batch
 from repro_torch.device import resolve_device
 from repro_torch.runtime.resilience import (
@@ -51,30 +56,39 @@ DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
 # Frozen deployment artifact
 # --------------------------------------------------------------------------
 class DeployedDONN:
-    """A trained DONN frozen for serving (classify family).
+    """A trained DONN frozen for serving.
 
-    Holds the propagation plan, the precomputed modulation planes and the
-    detector — everything ``forward`` needs and nothing of the training
-    machinery.  Build with ``freeze(model, params)``.
+    Holds the propagation plan, the precomputed modulation planes, the
+    detector (``"cls"``, ``"multi"``) or the skip wiring (``"seg"``) —
+    everything ``forward`` needs and nothing of the training machinery.
+    Build with ``freeze(model, params)``.
     """
 
     def __init__(self, cfg, family: str, plan, frozen, source, in_n: int,
-                 detector=None, rfft_first: bool = False, device=None):
-        if family != "cls":
-            raise NotImplementedError(
-                f"the {family!r} family comes with the RGB/segmentation slice"
-            )
+                 detector=None, skip_from=None, skip_hop=None,
+                 out_grid=None, rfft_first: bool = False, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.family = family
+        self.family = family  # "cls" | "multi" | "seg"
         self.plan = plan
         self.frozen = tuple(frozen)
         self.source = torch.as_tensor(source).to(self.device)
         self.in_n = in_n
         self.detector = detector
-        self.plane_dtype = pp.frozen_plane_dtype(self.frozen)
+        self.skip_from = skip_from
+        self.skip_hop = skip_hop
+        self.out_grid = out_grid
+        self.heterogeneous = cfg.is_heterogeneous()
+        # a segmented plan's frozen planes are one tuple per segment
+        self.plane_dtype = pp.frozen_plane_dtype(
+            self.frozen[0] if self.heterogeneous else self.frozen)
         self.rfft_first = bool(rfft_first)
         if self.rfft_first:
+            if self.heterogeneous:
+                raise ValueError(
+                    "rfft_first covers uniform plans (the segmented first "
+                    "hop is not ported, as in the reference)"
+                )
             if not plan.rfft_first_supported():
                 raise ValueError(
                     "rfft_first needs an unpadded non-fraunhofer plan"
@@ -91,25 +105,58 @@ class DeployedDONN:
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, frozen=None) -> torch.Tensor:
-        """Batched frozen forward: images (B, h, w) -> logits (B, C)."""
+        """Batched frozen forward: images (B, h, w) — (B, C, h, w) for
+        RGB — to logits (B, K), or intensity maps (B, n, n) for ``"seg"``
+        (the eval path: no train-time layer norm)."""
         frozen = self.frozen if frozen is None else frozen
+        plan = self.plan
         if self.rfft_first:
             # real-to-complex entry: layer 0 runs as half-spectrum rFFTs
             xr = data_to_real(x, self.in_n) * self.source.real
-            u = self.plan.first_layer_real(xr, frozen)
+            u = plan.first_layer_real(xr, frozen)
             start = 1
         else:
             u = data_to_cplex(x, self.in_n) * self.source
             start = 0
-        u = self.plan.forward(None, u, start=start, frozen=frozen)
-        u = self.plan.propagate_final(u)
+        if self.family == "seg":
+            skip_u = None
+            if self.skip_from is None:
+                u = plan.forward(None, u, start=start, frozen=frozen)
+            else:
+                u = plan.forward(None, u, start=start,
+                                 stop=self.skip_from + 1, frozen=frozen)
+                skip_u = u
+                u = plan.forward(None, u, start=self.skip_from + 1,
+                                 frozen=frozen)
+            return md.skip_combine(plan.propagate_final(u), skip_u,
+                                   self.skip_hop, self.out_grid)
+        u = plan.propagate_final(plan.forward(None, u, start=start,
+                                              frozen=frozen))
+        if self.family == "multi":
+            return md.channel_readout(u, self.detector.masks_t,
+                                      self.cfg.use_pallas)
         return self.detector(u)
 
 
 def deployed_from_model(model, frozen, source=None,
                         rfft_first: bool = False) -> DeployedDONN:
-    """Assemble a ``DeployedDONN`` around a built model + ready-made planes."""
-    if not isinstance(model, DONN):
+    """Assemble a ``DeployedDONN`` around a built model + ready-made planes
+    (plan, detector, grids and skip wiring from the model)."""
+    if isinstance(model, md.MultiChannelDONN):
+        cm = model.channel_model
+        return DeployedDONN(
+            model.cfg, "multi", cm.plan, frozen,
+            cm.source if source is None else source, cm.in_grid.n,
+            detector=cm.detector, rfft_first=rfft_first, device=cm.device,
+        )
+    if isinstance(model, md.SegmentationDONN):
+        return DeployedDONN(
+            model.cfg, "seg", model.plan, frozen,
+            model.source if source is None else source, model.in_grid.n,
+            skip_from=model.skip_from, skip_hop=model.skip_hop,
+            out_grid=model.grid, rfft_first=rfft_first, device=model.device,
+        )
+    if not isinstance(model, md.DONN):
         raise TypeError(f"cannot freeze {type(model).__name__}")
     return DeployedDONN(
         model.cfg, "cls", model.plan, frozen,
@@ -122,14 +169,17 @@ def freeze(model, params, plane_dtype: str = "float32",
            rfft_first: bool = False, device=None) -> DeployedDONN:
     """Fold a trained model + params into a serving artifact on ``device``.
 
-    ``device`` (the CUDA card by default) must be the model's: the
-    artifact serves where the model's planes and detector live.
+    Covers the three families (classify, RGB, segmentation with the skip)
+    on uniform and heterogeneous stacks.  ``device`` (the CUDA card by
+    default) must be the model's: the artifact serves where the model's
+    planes and detector live.
     ``plane_dtype`` is ``"float32"`` | ``"bfloat16"`` | ``"int8"`` storage
     (f32 accumulation); ``rfft_first`` opts into the half-spectrum
     real-to-complex first hop.
     """
     dev = resolve_device(device)
-    if not isinstance(model, DONN):
+    if not isinstance(model, (md.DONN, md.MultiChannelDONN,
+                              md.SegmentationDONN)):
         raise TypeError(f"cannot freeze {type(model).__name__}")
     if model.device != dev:
         raise ValueError(
@@ -178,9 +228,12 @@ class InferenceEngine:
             )
         self.stats = {"requests": 0, "batches": 0, "padded_rows": 0}
 
+    def _x_ndim(self) -> int:
+        return 4 if self.deployed.family == "multi" else 3
+
     def _example(self, bucket: int) -> np.ndarray:
-        n = self.deployed.cfg.input_size
-        return np.zeros((bucket, n, n), np.float32)
+        return np.zeros((bucket,) + expected_request_shape(self.deployed),
+                        np.float32)
 
     def _run(self, xp: np.ndarray) -> torch.Tensor:
         return self.deployed.forward(torch.from_numpy(xp).to(self.device))
@@ -201,11 +254,13 @@ class InferenceEngine:
     def infer(self, x) -> np.ndarray:
         """Serve one request batch: pad to bucket, run, slice.
 
-        ``x``: (B, h, w) images, any B.  Returns the (B, C) outputs as
-        numpy (the device-to-host copy is the response).
+        ``x``: (B, h, w) images ((B, C, h, w) for RGB), any B; one request
+        without its batch axis is taken as a batch of one.  Returns the
+        (B, ...) outputs as numpy (the device-to-host copy is the
+        response).
         """
         x = np.asarray(x)
-        if x.ndim == 2:
+        if x.ndim == self._x_ndim() - 1:
             x = x[None]
         b_max = self.buckets[-1]
         outs = []
@@ -221,8 +276,11 @@ class InferenceEngine:
 
 
 def expected_request_shape(deployed: DeployedDONN) -> tuple:
-    """Per-request input shape a deployment serves."""
-    n = deployed.cfg.input_size
+    """Per-request input shape a deployment serves ((C, n, n) for RGB)."""
+    cfg = deployed.cfg
+    n = cfg.input_size
+    if deployed.family == "multi":
+        return (cfg.channels, n, n)
     return (n, n)
 
 

@@ -18,7 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.convert import lm_params_from_jax, params_from_jax  # noqa: E402
-from repro_torch.core.config import DONNConfig  # noqa: E402
+from repro_torch.core.config import DONNConfig, LayerSpec  # noqa: E402
 from repro_torch.core.models import DONN, build_model  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import serve, serve_donn  # noqa: E402
@@ -451,6 +451,88 @@ def test_serving_slice_on_the_card_matches_cpu(cuda):
         assert np.max(np.abs(got - want)) <= 1e-4 * scale
         assert np.max(np.abs(singles - want)) <= 1e-4 * scale
         np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+_PLAIN_VERSIONS = ("conj_phase_scale_ref", "phase_tf_apply_ref",
+                   "intensity_readout_ref", "phase_apply_ref",
+                   "complex_mul_ref", "rope_ref", "selective_scan_ref")
+
+
+def _forbid_plain_versions(monkeypatch):
+    def forbidden(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for fn in _PLAIN_VERSIONS:
+        monkeypatch.setattr(ref, fn, forbidden)
+
+
+def test_channel_readout_launches_k3_never_plain_version(cuda, monkeypatch):
+    """The RGB detector: K3 over the B*C rows (one launch), then the
+    channel sum; it repeats to the bit."""
+    gen = torch.Generator().manual_seed(5)
+    u = _field(gen, (4, 3, 37, 53), cuda)
+    masks = torch.rand((6, 37, 53), generator=gen).to(cuda)
+    want = ops.channel_intensity_readout(u.cpu(), masks.cpu())
+    _forbid_plain_versions(monkeypatch)
+    ops.reset_launch_counts()
+    got = ops.channel_intensity_readout(u, masks)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["intensity_readout"] == 1
+    assert got.shape == (4, 6) and _rel(got, want) <= 1e-5
+    assert torch.equal(ops.channel_intensity_readout(u, masks), got)
+
+
+def test_rgb_plane_stack_goes_through_k1(cuda, monkeypatch):
+    """The RGB scan engine runs its (L, C, N, N) phase stack through K1 on
+    the card (two launches a layer), K2 on the final hop and K3 once, and
+    agrees with its CPU copy; the eager engine runs K4, one (N, N) plane
+    per channel and layer."""
+    cfg = dataclasses.replace(CFG, channels=3, num_classes=6)
+    x = np.random.default_rng(0).random((4, 3, 28, 28), np.float32)
+    for engine, launches in (
+            ("scan", {"conj_phase_scale": 2 * cfg.depth,
+                      "phase_tf_apply": 1, "intensity_readout": 1}),
+            ("eager", {"phase_apply": 3 * cfg.depth,
+                       "intensity_readout": 1})):
+        ecfg = dataclasses.replace(cfg, engine=engine)
+        model = build_model(ecfg, device=cuda)
+        params = model.init(torch.Generator().manual_seed(0))
+        want = build_model(ecfg, device="cpu").apply(
+            tree_map(lambda t: t.cpu(), params), torch.from_numpy(x))
+        with monkeypatch.context() as m:
+            _forbid_plain_versions(m)
+            ops.reset_launch_counts()
+            got = model.apply(params, torch.from_numpy(x).to(cuda))
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        assert counts == {**dict.fromkeys(ops.KERNELS, 0), **launches}
+        assert _rel(got, want) <= 1e-4
+
+
+def test_families_serve_on_the_card_like_cpu(cuda):
+    """Frozen RGB, segmentation and heterogeneous serving on the card
+    against the same deployments on CPU copies (1e-4 of the max)."""
+    kws = {
+        "multi": dict(channels=3, num_classes=6),
+        "seg": dict(segmentation=True, skip_from=0, layer_norm=True),
+        "hetero": dict(n=40, layers=(
+            LayerSpec(0.05, size=40), LayerSpec(0.05, size=32,
+                                                pixel_size=48e-6))),
+    }
+    for family, kw in kws.items():
+        cfg = dataclasses.replace(CFG, **kw)
+        model = build_model(cfg, device=cuda)
+        params = model.init(torch.Generator().manual_seed(0))
+        shape = (5, 3, 28, 28) if family == "multi" else (5, 28, 28)
+        x = np.random.default_rng(1).random(shape, np.float32)
+        eng = InferenceEngine(freeze(model, params), buckets=(1, 4),
+                              device=cuda)
+        got = eng.infer(x)
+        want = freeze(build_model(cfg, device="cpu"),
+                      tree_map(lambda t: t.cpu(), params),
+                      device="cpu").forward(torch.from_numpy(x)).numpy()
+        assert np.max(np.abs(got - want)) <= 1e-4 * np.max(np.abs(want)), \
+            family
 
 
 def test_lm_smoke_configs_on_the_card_match_cpu(cuda):

@@ -30,7 +30,7 @@ from repro.core import config as jconfig  # noqa: E402
 from repro.runtime import inference as jinf  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
-from repro_torch.core.config import DONNConfig, LayerSpec  # noqa: E402
+from repro_torch.core.config import DONNConfig  # noqa: E402
 from repro_torch.core.models import DONN, build_model  # noqa: E402
 from repro_torch.launch import serve_donn  # noqa: E402
 from repro_torch.runtime.inference import (  # noqa: E402
@@ -353,8 +353,6 @@ def test_serve_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--family", "rgb"], "RGB"),
-    (["--family", "segmentation"], "segmentation"),
     (["--artifact", "dir"], "persistence"),
     (["--save-artifact", "dir"], "persistence"),
     (["--mesh-devices", "2"], "multi-device"),
@@ -364,19 +362,6 @@ def test_serve_cli_refuses_later_slices(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         serve_donn.main(flags + ["--n", "32", "--depth", "2",
                                  "--device", "cpu"])
-
-
-@pytest.mark.parametrize("kw,match", [
-    (dict(channels=3), "RGB"),
-    (dict(segmentation=True, skip_from=0), "segmentation"),
-    (dict(layers=(LayerSpec(0.05, size=40), LayerSpec(0.05))),
-     "heterogeneous"),
-])
-def test_models_refuse_later_slices(kw, match):
-    kw.setdefault("depth", 2)
-    cfg = DONNConfig(name="later", n=32, distance=0.05, det_size=6, **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        build_model(cfg, device=CPU)
 
 
 def test_eager_engine_builds_and_serves_like_apply():

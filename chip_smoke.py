@@ -67,7 +67,27 @@ script exits non-zero without the final line:
    of K1's plane-major copies for the RGB (32, 3, 200, 200) field is
    timed beside the fused hop.  ``hybrid-slm-printed`` (two segments, one
    resample stitch) is held forward, backward and frozen.
-8. lm      — the LM serving slice with random parameters from seeded
+8. design  — the paper's design flow (Fig. 3, §4), each result held
+   against K sequential ``build_model(c).apply`` calls on the card and
+   against a CPU copy (plain versions) within SLICE_RTOL, launches held
+   against their formula: ``donn-mnist-5l`` with Gumbel codesign (256
+   levels, gamma calibrated) trains TRAIN_STEPS steps with noise from a
+   CUDA generator on each engine through ``make_train_chunk``, the CPU
+   copy replaying the card's draws; the peak memory of a step and
+   steps/s against the qat step; a falling loss in 40 steps.
+   ``emulate_batch`` at n=200, batch 32: 8 geometries (wavelength, pitch,
+   distance), a mixed-depth set (2-5, masked) and sensitivity_analysis's
+   15 points, each timed against the K sequential calls (fresh and cached
+   models); ``donn-rgb`` and ``donn-seg`` (skip, train=True) at K=4; one
+   call launches K1 2L, K2 once (twice with the skip hop) and K3 once for
+   all K.  ``LightRidgeDSE.explore`` and ``sensitivity_analysis`` through
+   ``emulate_batch`` against the sequential ``emulate``.  ``remat``
+   "layer"/"segment" against "none" at depth 5 (2L more K1 a step, the
+   recompute) and each policy's peak memory at depth 16.  Then the
+   examples' flows: quickstart (DSL -> train -> export -> serve, accuracy
+   >= 0.95 asserted) and the four steps of the codesign flow, its DSE
+   verified through ``emulate_batch``.
+9. lm      — the LM serving slice with random parameters from seeded
    generators on the card, TF32 off: ``repro_torch.launch.serve.main``
    serves qwen1.5-4b (full width and depth, bf16 matmuls) at 8 slots, 24
    requests, prompt 16, 32 new tokens, twice; a full-width depth-2 f32
@@ -91,19 +111,20 @@ the timed shape B 8, S 2048, D 8192, N 16 both ways; each case repeats
 to the bit and its batch row 1 alone equals the row inside its batch.
 
 Then one JSON line lists every kernel with its launches on the main path
-(DONN serving + training, the families, LM serving) and in the LM holds
-apart, its
-launches per training step on each engine and per LM window, error and
-times, and the last line is the device record.
+(DONN serving + training, the families, the design flow, LM serving) and
+in the LM holds apart, its launches per training step on each engine,
+per family, per design part and per LM window, error and times, and the
+last line is the device record.
 ``--profile FILE`` adds ``torch.profiler`` tables of PROFILE_BATCHES
 bucket-32 batches and of PROFILE_CHUNKS 8-step training chunks, with the
 device's busy time and idle share, printed and written to FILE (the
 training table to FILE.train, RGB and segmentation serving to FILE.rgb
-and FILE.seg).
+and FILE.seg, an emulate_batch call of 8 candidates to FILE.design).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -121,11 +142,15 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.donn import HYBRID_SLM_PRINTED  # noqa: E402
-from repro_torch.core.models import build_model  # noqa: E402
+from repro_torch.core import codesign, dse, dsl  # noqa: E402
+from repro_torch.core.config import DONNConfig  # noqa: E402
+from repro_torch.core.models import (  # noqa: E402
+    build_model, cached_model, emulate_batch,
+)
 from repro_torch.core.regularization import calibrate_gamma  # noqa: E402
 from repro_torch.core.train_utils import (  # noqa: E402
-    bce_segmentation_loss, loss_and_grads, make_train_chunk, make_train_step,
-    train_classifier,
+    bce_segmentation_loss, evaluate_classifier, loss_and_grads,
+    make_train_chunk, make_train_step, mse_softmax_loss, train_classifier,
 )
 from repro_torch.data.synthetic import (  # noqa: E402
     batch_iterator, synth_digits, synth_rgb_scenes, synth_seg,
@@ -1109,16 +1134,16 @@ def _profile(run, reps: int, units: int, unit: str, path: str,
     print(table)
 
 
-def _hold_step(what: str, got, want) -> None:
+def _hold_step(what: str, got, want, tag: str = "train") -> None:
     """Loss and every layer's d/dphase within SLICE_RTOL of the max."""
     (loss, _, grads), (wloss, _, wgrads) = got, want
     rel = abs(float(loss) - float(wloss)) / abs(float(wloss))
-    print(f"[train] {what}: loss {float(loss):.6f} vs {float(wloss):.6f} "
+    print(f"[{tag}] {what}: loss {float(loss):.6f} vs {float(wloss):.6f} "
           f"(rel {rel:.3e}, tol {SLICE_RTOL:g})")
     if not (math.isfinite(float(loss)) and rel <= SLICE_RTOL):
         raise AssertionError(f"{what}: losses disagree")
     keys = sorted(wgrads["phase"])
-    _compare_grads(f"[train] {what}: d/dphase of {len(keys)} layers",
+    _compare_grads(f"[{tag}] {what}: d/dphase of {len(keys)} layers",
                    [grads["phase"][k] for k in keys],
                    [wgrads["phase"][k] for k in keys], SLICE_RTOL)
 
@@ -1295,21 +1320,23 @@ def _counted(run) -> dict:
     return ops.launch_counts()
 
 
-def _hold_launches(what: str, got: dict, per: dict, times: int) -> None:
+def _hold_launches(what: str, got: dict, per: dict, times: int,
+                   tag: str = "families") -> None:
     want = {k: v * times for k, v in per.items()}
-    print(f"[families] {what}: launches {got} (expected {want})")
+    print(f"[{tag}] {what}: launches {got} (expected {want})")
     if got != want:
         raise AssertionError(f"{what}: the kernels did not run as counted")
 
 
-def _hold_out(what: str, got, want, argmax: bool) -> float:
+def _hold_out(what: str, got, want, argmax: bool, tag: str = "families",
+              against: str = "the CPU copy") -> float:
     got, want = np.asarray(got), np.asarray(want)
     if got.shape != want.shape or not np.isfinite(got).all():
         raise AssertionError(f"{what}: bad output {got.shape}")
     rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
     same = (not argmax) or bool(np.array_equal(got.argmax(-1),
                                                want.argmax(-1)))
-    print(f"[families] {what}: rel err vs the CPU copy {rel:.3e} (tol "
+    print(f"[{tag}] {what}: rel err vs {against} {rel:.3e} (tol "
           f"{SLICE_RTOL:g}){', argmax equal' if argmax and same else ''}")
     if rel > SLICE_RTOL or not same:
         raise AssertionError(f"{what}: card and CPU disagree")
@@ -1638,6 +1665,607 @@ def phase_families(dev, smi: str, profile) -> dict:
     return {f: r["launches"] for f, r in fams.items()}
 
 
+# --------------------------------------------------------------------------
+# design: the paper's design flow (Fig. 3, §4) — Gumbel codesign with
+# noise, batched multi-candidate emulation, the DSE, remat, the flows
+# --------------------------------------------------------------------------
+DESIGN_K = 8  # candidates of the timed emulate_batch set
+DESIGN_B = 32  # inputs a candidate
+DESIGN_WINDOW_S = 1.5  # seconds a timed emulation row, repeat
+REMAT_DEPTH = 16  # the depth whose peak memory each remat policy gets
+_GUMBEL_NOISE = codesign.gumbel_noise
+
+
+class _NoiseTape:
+    """The card's Gumbel draws, recorded as CPU copies in call order and
+    replayed in that order on the CPU copy: a CUDA generator and a CPU one
+    draw different streams, so the CPU copy is handed the card's draws."""
+
+    def __init__(self):
+        self.draws, self.used = [], 0
+
+    def record(self, generator, shape, dtype, device):
+        g = _GUMBEL_NOISE(generator, shape, dtype, device)
+        self.draws.append(g.cpu())
+        return g
+
+    def replay(self, generator, shape, dtype, device):
+        g = self.draws[self.used]
+        if tuple(g.shape) != tuple(shape):
+            raise AssertionError(f"noise replay: {tuple(shape)} asked, "
+                                 f"{tuple(g.shape)} recorded")
+        self.used += 1
+        return g.to(device, dtype)
+
+
+@contextlib.contextmanager
+def _noise(fn):
+    """``codesign.gumbel_noise`` replaced by ``fn`` for the block."""
+    codesign.gumbel_noise = fn
+    try:
+        yield
+    finally:
+        codesign.gumbel_noise = _GUMBEL_NOISE
+
+
+def _add(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] += v
+
+
+def _peak_mb(run) -> float:
+    """Peak device memory ``run()`` allocates above what was allocated
+    before it (``torch.cuda.max_memory_allocated``), in MB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 1e6
+
+
+def _design_gumbel(dev, smi: str) -> dict:
+    """donn-mnist-5l with Gumbel codesign (256 levels) trained with noise
+    on both engines through make_train_chunk; the card's draws replayed on
+    the CPU copy; launches, peak memory and steps/s; a falling loss."""
+    cfg = dataclasses.replace(get_config("donn-mnist-5l"), use_pallas=True,
+                              codesign="gumbel")
+    L, C = cfg.depth, cfg.num_classes
+    params = build_model(cfg, device=dev).init(
+        torch.Generator().manual_seed(0))
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    dx, dy = synth_digits(512, seed=0)
+    # the saturated softmax at the config's gamma (PR 12) would starve
+    # both the holds and the learning check: calibrate first
+    gamma = calibrate_gamma(build_model(cfg, device=dev), params, dx[:16])
+    cfg = dataclasses.replace(cfg, gamma=gamma)
+    print(f"[design] gumbel donn-mnist-5l (n={cfg.n}, depth {L}, "
+          f"{cfg.device_levels} levels): gamma calibrated {gamma:.4f}")
+    xs, ys = dx[:32], dy[:32]
+    xs3 = np.stack([dx[i * 32:(i + 1) * 32] for i in range(TRAIN_STEPS)])
+    ys3 = np.stack([dy[i * 32:(i + 1) * 32] for i in range(TRAIN_STEPS)])
+    per = train_launches_per_step(L)
+    opt = AdamW(lr=0.3)
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    models = {}
+    for engine in ("scan", "eager"):
+        ecfg = dataclasses.replace(cfg, engine=engine)
+        card_m = models[engine] = build_model(ecfg, device=dev)
+        cpu_m = build_model(ecfg, device="cpu")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        tape = _NoiseTape()
+        with _noise(tape.record):
+            card = loss_and_grads(card_m, params, xs, ys, C, gen)
+        with _noise(tape.replay):
+            want = loss_and_grads(cpu_m, cpu_params, xs, ys, C,
+                                  torch.Generator())
+        _hold_step(f"gumbel {engine}, one step on the card's draws: card vs "
+                   f"the CPU copy", card, want, tag="design")
+        chunk = make_train_chunk(card_m, opt, C, needs_rng=True)
+        chunk(params, opt.init(params), 0, xs3, ys3, gen)  # plans, uploads
+        tape, out = _NoiseTape(), {}
+        with _noise(tape.record):
+            got = _counted(lambda: out.update(
+                r=chunk(params, opt.init(params), 0, xs3, ys3, gen)))
+        _hold_launches(f"gumbel {engine}, {TRAIN_STEPS} training steps with "
+                       f"noise (per step {per[engine]})", got, per[engine],
+                       TRAIN_STEPS, tag="design")
+        if len(tape.draws) != TRAIN_STEPS * L:
+            raise AssertionError(f"gumbel {engine}: {len(tape.draws)} draws "
+                                 f"for {TRAIN_STEPS} steps of {L} layers")
+        _add(launches, got)
+        losses = out["r"][2].cpu().numpy()
+        with _noise(tape.replay):
+            want = make_train_chunk(cpu_m, opt, C, needs_rng=True)(
+                cpu_params, opt.init(cpu_params), 0, xs3, ys3,
+                torch.Generator())[2].numpy()
+        rel = float(np.max(np.abs(losses - want)) / np.max(np.abs(want)))
+        print(f"[design] gumbel {engine}: losses of {TRAIN_STEPS} steps "
+              f"{[round(float(v), 6) for v in losses]} vs the CPU copy's on "
+              f"the same draws (rel {rel:.3e}, tol {SLICE_RTOL:g})")
+        if rel > SLICE_RTOL or not np.isfinite(losses).all():
+            raise AssertionError(f"gumbel {engine}: losses disagree")
+
+    # peak memory of one optimizer step and steps/s at batch 32, against
+    # the qat step of the main path (rows interleaved)
+    rows = [("gumbel scan + kernels", models["scan"], True),
+            ("gumbel eager + K4", models["eager"], True),
+            ("qat scan + kernels", build_model(
+                dataclasses.replace(cfg, codesign="qat"), device=dev), False)]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    xs8 = torch.from_numpy(np.stack([xs] * CHUNK)).to(dev)
+    ys8 = torch.from_numpy(np.stack([ys] * CHUNK)).to(dev)
+    state = opt.init(params)
+    for label, m, noisy in rows:
+        step = make_train_step(m, opt, C, needs_rng=noisy)
+        step(params, state, 0, xs, ys, gen)
+        mb = _peak_mb(lambda: step(params, state, 0, xs, ys, gen))
+        print(f"[design] {label}: peak memory of one training step at batch "
+              f"32 {mb:.1f} MB above the resident state ({smi})")
+    chunks = {label: make_train_chunk(m, opt, C, needs_rng=noisy)
+              for label, m, noisy in rows}
+    perf = {label: [] for label, _, _ in rows}
+    for rep in range(REPEATS):
+        for label, _, _ in rows:
+            fn = chunks[label]
+            fn(params, state, 0, xs8, ys8, gen)[2].cpu()
+            n_steps, t0 = 0, time.perf_counter()
+            while time.perf_counter() < t0 + WINDOW_S:
+                fn(params, state, 0, xs8, ys8, gen)[2].cpu()
+                n_steps += CHUNK
+            sps = n_steps / (time.perf_counter() - t0)
+            perf[label].append(sps)
+            print(f"[design] {label} (repeat {rep + 1}/{REPEATS}): {sps:.1f} "
+                  f"optimizer steps/s at batch 32 over {n_steps} steps "
+                  f"({smi})")
+    for label, v in perf.items():
+        print(f"[design] {label}: steps/s {min(v):.1f}-{max(v):.1f} across "
+              f"{REPEATS} repeats")
+
+    # training works with noise: the loss falls over 40 steps
+    res = train_classifier(models["scan"], params,
+                           batch_iterator(dx, dy, 32, seed=1), steps=40,
+                           lr=0.3, steps_per_call=CHUNK, needs_rng=True,
+                           rng=torch.Generator(device=dev).manual_seed(3))
+    first, last = (float(np.mean(res.losses[:8])),
+                   float(np.mean(res.losses[-8:])))
+    print(f"[design] gumbel train_classifier 40 steps with noise (lr 0.3, "
+          f"{CHUNK} per chunk) in {res.wall_time_s:.2f}s: mean loss of the "
+          f"first 8 {first:.4f}, of the last 8 {last:.4f}")
+    if not (np.all(np.isfinite(res.losses)) and last < first):
+        raise AssertionError("gumbel training: the loss did not fall")
+    return launches
+
+
+def _geometries(base, points):
+    return [dataclasses.replace(base, name=f"{base.name}-{i}",
+                                wavelength=float(lam), pixel_size=float(d),
+                                distance=float(D))
+            for i, (lam, d, D) in enumerate(points)]
+
+
+def _emulation_rows(what: str, cfgs, params, x, smi: str, **kw) -> dict:
+    """One emulate_batch call over the candidates against K sequential
+    ``build_model(c).apply`` calls (fresh models, as a sweep without the
+    emulation runtime builds them) and against the cached models' apply:
+    host clock around work that ends in a synchronize, DESIGN_WINDOW_S
+    seconds a row, REPEATS times, rows interleaved."""
+    plist = params if isinstance(params, (list, tuple)) else [params] * len(
+        cfgs)
+    xt = torch.from_numpy(x).to(_dev_of(plist[0]))
+
+    def seq(build):
+        return [build(c).apply(p, xt, **kw) for c, p in zip(cfgs, plist)]
+
+    runs = [
+        ("emulate_batch", lambda: emulate_batch(
+            cfgs, params, x, device=xt.device, **kw)),
+        ("K x build_model(c).apply", lambda: seq(
+            lambda c: build_model(c, device=xt.device))),
+        ("K x cached_model(c).apply", lambda: seq(
+            lambda c: cached_model(c, device=xt.device))),
+    ]
+    perf = {label: [] for label, _ in runs}
+    for rep in range(REPEATS):
+        for label, fn in runs:
+            fn()
+            torch.cuda.synchronize()
+            n, t0 = 0, time.perf_counter()
+            while time.perf_counter() < t0 + DESIGN_WINDOW_S:
+                fn()
+                torch.cuda.synchronize()
+                n += 1
+            perf[label].append((time.perf_counter() - t0) / n * 1e3)
+    for label, v in perf.items():
+        print(f"[design] {what}: {label} {min(v):.3f}-{max(v):.3f} ms a call "
+              f"over {REPEATS} repeats of {DESIGN_WINDOW_S:g} s ({smi})")
+    ratio = min(perf["K x build_model(c).apply"]) / min(perf["emulate_batch"])
+    print(f"[design] {what}: emulate_batch {ratio:.2f}x faster than K "
+          f"sequential build_model(c).apply, "
+          f"{min(perf['K x cached_model(c).apply']) / min(perf['emulate_batch']):.2f}x "
+          f"than K applies of cached models")
+    return perf
+
+
+def _dev_of(params) -> torch.device:
+    return tree_leaves(params)[0].device
+
+
+def _design_set(what: str, cfgs, params, x, per_call: dict, smi: str,
+                argmax: bool = True, timed: bool = False, **kw):
+    """emulate_batch on the card, counted and held against K sequential
+    ``build_model(c).apply`` calls on the card and against the same call
+    on CPU copies; optionally timed against the sequential calls.
+    Returns the launches and the timed rows (None when not timed)."""
+    dev = _dev_of(params if not isinstance(params, (list, tuple))
+                  else params[0])
+    out = {}
+    got = _counted(lambda: out.update(
+        b=emulate_batch(cfgs, params, x, device=dev, **kw)))
+    _hold_launches(f"{what}: one emulate_batch call of {len(cfgs)} "
+                   f"candidates", got, per_call, 1, tag="design")
+    plist = params if isinstance(params, (list, tuple)) else [params] * len(
+        cfgs)
+    xt = torch.from_numpy(x).to(dev)
+    seq = torch.stack([build_model(c, device=dev).apply(p, xt, **kw)
+                       for c, p in zip(cfgs, plist)])
+    got_b = out["b"].cpu().numpy()
+    _hold_out(f"{what}: emulate_batch", got_b, seq.cpu().numpy(), argmax,
+              tag="design", against=f"{len(cfgs)} sequential "
+                                    "build_model(c).apply on the card")
+    cpu_params = [tree_map(lambda t: t.cpu(), p) for p in plist]
+    want = emulate_batch(cfgs, cpu_params if isinstance(
+        params, (list, tuple)) else cpu_params[0], x, device="cpu", **kw)
+    _hold_out(f"{what}: emulate_batch", got_b, want.numpy(), argmax,
+              tag="design")
+    perf = _emulation_rows(what, cfgs, params, x, smi, **kw) if timed \
+        else None
+    return got, perf
+
+
+def _design_emulation(dev, smi: str, profile) -> dict:
+    """emulate_batch at donn-mnist-5l's width: K=8 geometries, a mixed-
+    depth set (2-5, masked) and sensitivity_analysis's 15 points, each
+    held and timed against K sequential applies; one donn-rgb and one
+    donn-seg set (skip, train=True) at K=4; then the DSE's explore and
+    sensitivity_analysis through emulate_batch against the sequential
+    emulate."""
+    base = dataclasses.replace(get_config("donn-mnist-5l"), use_pallas=True)
+    L = base.depth
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    cls_call = {**dict.fromkeys(ops.KERNELS, 0), "conj_phase_scale": 2 * L,
+                "phase_tf_apply": 1, "intensity_readout": 1}
+    x = _digits(DESIGN_B, seed=11)
+    points = [(lam, d, D) for lam, d, D in (
+        (532e-9, 36e-6, 0.30), (480e-9, 36e-6, 0.30), (600e-9, 36e-6, 0.30),
+        (532e-9, 32e-6, 0.26), (532e-9, 40e-6, 0.34), (480e-9, 40e-6, 0.26),
+        (600e-9, 32e-6, 0.34), (633e-9, 42e-6, 0.33))][:DESIGN_K]
+    cfgs = _geometries(base, points)
+    plist = [build_model(c, device=dev).init(
+        torch.Generator(device=dev).manual_seed(10 + k))
+        for k, c in enumerate(cfgs)]
+    print(f"[design] emulate_batch: donn-mnist-5l geometries (wavelength, "
+          f"pitch, distance) {points}, batch {DESIGN_B}")
+    got, perf = _design_set(f"K={DESIGN_K} geometries", cfgs, plist, x,
+                            cls_call, smi, timed=True)
+    _add(launches, got)
+    if profile:
+        _profile(lambda: emulate_batch(cfgs, plist, x, device=dev),
+                 PROFILE_BATCHES, 1, "emulate_batch call", profile + ".design",
+                 min(perf["emulate_batch"]) * 1e3)
+    depths = (2, 3, 4, 5)
+    mixed = [dataclasses.replace(c, depth=d) for c, d in zip(cfgs, depths)]
+    mplist = [build_model(c, device=dev).init(
+        torch.Generator(device=dev).manual_seed(20 + k))
+        for k, c in enumerate(mixed)]
+    _add(launches, _design_set(f"mixed depths {depths} (masked to depth "
+                               f"{max(depths)})", mixed, mplist, x,
+                               {**cls_call,
+                                "conj_phase_scale": 2 * max(depths)}, smi,
+                               timed=True)[0])
+    best = (532e-9, 36e-6, 0.30)
+    sens_pts = []
+    for idx in range(3):
+        for delta in (-0.10, -0.05, 0.0, 0.05, 0.10):
+            p = list(best)
+            p[idx] *= 1.0 + delta
+            sens_pts.append(tuple(p))
+    sens = _geometries(base, sens_pts)
+    shared = plist[0]
+    _add(launches, _design_set("sensitivity_analysis's 15 points (shared "
+                               "params)", sens, shared, x, cls_call, smi,
+                               timed=True)[0])
+
+    rgb = dataclasses.replace(get_config("donn-rgb"), use_pallas=True)
+    rgb_cfgs = _geometries(rgb, points[:4])
+    rp = [build_model(c, device=dev).init(
+        torch.Generator(device=dev).manual_seed(30 + k))
+        for k, c in enumerate(rgb_cfgs)]
+    xr = synth_rgb_scenes(16, seed=12, size=rgb.input_size)[0]
+    _add(launches, _design_set("donn-rgb K=4 (K3 over K*C*B rows)", rgb_cfgs,
+                               rp, xr, {**cls_call,
+                                        "conj_phase_scale": 2 * rgb.depth},
+                               smi)[0])
+    seg = dataclasses.replace(get_config("donn-seg"), use_pallas=True)
+    seg_cfgs = _geometries(seg, points[:4])
+    sp = [build_model(c, device=dev).init(
+        torch.Generator(device=dev).manual_seed(40 + k))
+        for k, c in enumerate(seg_cfgs)]
+    xsg = synth_seg(16, seed=13, size=seg.n)[0]
+    _add(launches, _design_set(
+        "donn-seg K=4 (skip from layer 0, train=True)", seg_cfgs, sp, xsg,
+        {**dict.fromkeys(ops.KERNELS, 0), "conj_phase_scale": 2 * seg.depth,
+         "phase_tf_apply": 2}, smi, argmax=False, train=True)[0])
+
+    # the DSE on the card: explore's top-k verification and the
+    # sensitivity analysis through emulate_batch against the sequential
+    # emulate, on a continuous figure of merit in [0, 1] where the DSE
+    # expects an accuracy (1 - half the MSE-softmax loss, which lies in
+    # [0, 2], of the shared parameters' logits), so no tie decides a pick
+    y = torch.from_numpy(synth_digits(DESIGN_B, seed=11)[1]).to(dev)
+    xt = torch.from_numpy(x).to(dev)
+
+    def score(logits):
+        return 1.0 - 0.5 * float(mse_softmax_loss(logits, y,
+                                                  base.num_classes))
+
+    def emulate(point):
+        c = _geometries(base, [point])[0]
+        return score(build_model(c, device=dev).apply(shared, xt))
+
+    def batch(points_):
+        return [score(o) for o in emulate_batch(
+            _geometries(base, points_), shared, x, device=dev)]
+
+    pts, merit = [], []
+    for lam in (432e-9, 632e-9):
+        grid = [(lam, d, D) for d in (30e-6, 36e-6, 42e-6)
+                for D in (0.26, 0.30, 0.34)]
+        pts += grid
+        merit += batch(grid)
+    model = dse.LightRidgeDSE(n_estimators=200).fit(pts, merit)
+    cand = [(d, D) for d in (30e-6, 33e-6, 36e-6, 39e-6, 42e-6)
+            for D in (0.26, 0.30, 0.34)]
+    res_b = model.explore(532e-9, cand, emulate_batch=batch, top_k=4)
+    res_s = model.explore(532e-9, cand, emulate=emulate, top_k=4)
+    rel = abs(res_b.verified_acc - res_s.verified_acc) / abs(
+        res_s.verified_acc)
+    print(f"[design] DSE explore at 532 nm over {len(cand)} candidates, top "
+          f"4 verified: emulate_batch picks {res_b.best_point} "
+          f"({res_b.verified_acc:.6f}), sequential emulate picks "
+          f"{res_s.best_point} ({res_s.verified_acc:.6f}), rel {rel:.3e}")
+    if res_b.best_point != res_s.best_point or rel > SLICE_RTOL:
+        raise AssertionError("DSE explore: batched and sequential differ")
+    out_b = dse.sensitivity_analysis(None, best, emulate_batch=batch)
+    out_s = dse.sensitivity_analysis(emulate, best)
+    worst = max(abs(a - b) / abs(b) for k in out_s
+                for (_, a), (_, b) in zip(out_b[k], out_s[k]))
+    print(f"[design] DSE sensitivity_analysis at {best}: batched vs "
+          f"sequential scores rel {worst:.3e} (tol {SLICE_RTOL:g}); "
+          f"{ {k: [round(v, 5) for _, v in r] for k, r in out_b.items()} }")
+    if worst > SLICE_RTOL:
+        raise AssertionError("sensitivity_analysis: batched and sequential "
+                             "differ")
+    return launches
+
+
+def _design_remat(dev, smi: str) -> dict:
+    """remat "layer"/"segment" against "none" at depth 5 (loss, d/dphase,
+    launches of a step: K1 2L more, the recompute), and the peak memory
+    of a training step at depth REMAT_DEPTH under each policy."""
+    base = dataclasses.replace(get_config("donn-mnist-5l"), use_pallas=True)
+    L, C = base.depth, base.num_classes
+    xs, ys = synth_digits(32, seed=5)
+    params = build_model(base, device=dev).init(
+        torch.Generator().manual_seed(6))
+    per = train_launches_per_step(L)["scan"]
+    launches = dict.fromkeys(ops.KERNELS, 0)
+    ref_step = None
+    for remat in ("none", "layer", "segment"):
+        model = build_model(dataclasses.replace(base, remat=remat),
+                            device=dev)
+        out = {}
+        got = _counted(lambda: out.update(
+            r=loss_and_grads(model, params, xs, ys, C)))
+        extra = 0 if remat == "none" else 2 * L
+        _hold_launches(f"remat={remat}, one training step", got,
+                       {**per, "conj_phase_scale": per["conj_phase_scale"]
+                        + extra}, 1, tag="design")
+        _add(launches, got)
+        if ref_step is None:
+            ref_step = out["r"]
+        else:
+            _hold_step(f"remat={remat} vs none at depth {L}", out["r"],
+                       ref_step, tag="design")
+    # peak memory at depth 16: the kernel path (K1's Function keeps one
+    # field a layer) and the plain path (each multiply keeps its operands)
+    deep = dataclasses.replace(base, depth=REMAT_DEPTH)
+    dparams = build_model(deep, device=dev).init(
+        torch.Generator().manual_seed(7))
+    for use_pallas in (True, False):
+        for remat in ("none", "layer", "segment"):
+            model = build_model(dataclasses.replace(
+                deep, remat=remat, use_pallas=use_pallas), device=dev)
+            loss_and_grads(model, dparams, xs, ys, C)
+            mb = _peak_mb(lambda: loss_and_grads(model, dparams, xs, ys, C))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                loss_and_grads(model, dparams, xs, ys, C)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 5 * 1e3
+            print(f"[design] remat={remat} at depth {REMAT_DEPTH}, batch 32, "
+                  f"use_pallas={use_pallas}: peak memory of a training step "
+                  f"{mb:.1f} MB above the resident state, {ms:.3f} ms a step "
+                  f"({smi})")
+    return launches
+
+
+def _design_flows(dev) -> dict:
+    """The two example flows on the card: examples/quickstart.py (DSL ->
+    calibrated gamma -> chunked training -> evaluation -> SLM export ->
+    frozen serving; synthetic accuracy >= 0.95 asserted) and the four steps
+    of examples/donn_codesign_flow.py, the DSE verified through
+    emulate_batch against the sequential emulation."""
+    launches = {}
+    xs, ys = synth_digits(1024, seed=0)
+
+    def quickstart():
+        src = dsl.laser(wavelength=532e-9, profile="plane")
+        layers = [dsl.layers.diffractlayer_raw(distance=0.05,
+                                               pixel_size=36e-6, size=64)
+                  for _ in range(3)]
+        det = dsl.layers.detector(num_classes=10, det_size=8, distance=0.05)
+        model, cfg = dsl.models.sequential(layers, det, laser=src,
+                                           name="quickstart", use_pallas=True,
+                                           device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        g = calibrate_gamma(model, params, xs[:16])
+        model = dsl.from_config(dataclasses.replace(cfg, gamma=g),
+                                device=dev)
+        res = train_classifier(model, params,
+                               batch_iterator(xs, ys, 64, seed=1),
+                               steps=150, lr=0.5, steps_per_call=10)
+        acc = evaluate_classifier(model, res.params,
+                                  batch_iterator(xs, ys, 128, seed=2), 4)
+        levels = [len(np.unique(codesign.to_slm(
+            phi, codesign.DeviceSpec(levels=256))))
+            for phi in res.params["phase"].values()]
+        eng = InferenceEngine(freeze(model, res.params, device=dev),
+                              buckets=(1, 8, 32), device=dev)
+        served = float(np.mean(eng.infer(xs[:32]).argmax(-1) == ys[:32]))
+        print(f"[design] quickstart (DSL, n=64, depth 3, gamma {g:.4f}): "
+              f"150 steps in {res.wall_time_s:.2f}s, loss "
+              f"{np.mean(res.losses[:10]):.4f} -> "
+              f"{np.mean(res.losses[-10:]):.4f}, eval accuracy {acc:.4f} "
+              f"(gate 0.95), SLM levels used {levels}, served 32 frozen "
+              f"requests at accuracy {served:.4f}")
+        if not acc >= 0.95:
+            raise AssertionError(f"quickstart: accuracy {acc:.4f} < 0.95")
+
+    launches["quickstart"] = _counted(quickstart)
+    print(f"[design] quickstart launches {launches['quickstart']}")
+
+    N = 64
+
+    def point_cfg(point, **kw):
+        lam, d, D = point
+        return DONNConfig(name="dse", n=N, pixel_size=float(d),
+                          wavelength=float(lam), distance=float(D), depth=2,
+                          det_size=8, use_pallas=True, **kw)
+
+    ev_x, ev_y = [], []
+    it = batch_iterator(xs, ys, 64, seed=2)
+    for _ in range(2):
+        bx, by = next(it)
+        ev_x.append(bx)
+        ev_y.append(by)
+    ev_x, ev_y = np.concatenate(ev_x), np.concatenate(ev_y)
+
+    def short_train(point):
+        model = build_model(point_cfg(point), device=dev)
+        params = model.init(torch.Generator().manual_seed(0))
+        return model, train_classifier(
+            model, params, batch_iterator(xs, ys, 64, seed=1), steps=12,
+            lr=0.5).params
+
+    def short_emulation(point) -> float:
+        """The example's accuracy proxy: 12 steps, then 2 eval batches."""
+        model, params = short_train(point)
+        return evaluate_classifier(model, params,
+                                   batch_iterator(xs, ys, 64, seed=2), 2)
+
+    def verify_batch(points_):
+        """The top-k verification in one emulate_batch call: each point
+        trained as short_emulation trains it, then all scored at once."""
+        plist = [short_train(p)[1] for p in points_]
+        out = emulate_batch([point_cfg(p) for p in points_], plist, ev_x,
+                            device=dev).cpu().numpy()
+        return [float(np.mean(o.argmax(-1) == ev_y)) for o in out]
+
+    def codesign_flow():
+        grid_d = np.linspace(12e-6, 48e-6, 4)
+        grid_D = np.linspace(0.02, 0.08, 4)
+        pts, accs = [], []
+        for lam in (432e-9, 632e-9):
+            for d in grid_d:
+                for D in grid_D:
+                    pts.append((lam, float(d), float(D)))
+                    accs.append(short_emulation(pts[-1]))
+        model = dse.LightRidgeDSE(n_estimators=200).fit(pts, accs)
+        cand = [(float(d), float(D)) for d in grid_d for D in grid_D]
+        res_b = model.explore(532e-9, cand, emulate_batch=verify_batch,
+                              top_k=2)
+        res_s = model.explore(532e-9, cand, emulate=short_emulation, top_k=2)
+        best = res_b.best_point
+        print(f"[design] codesign flow step 1 (DSE over {len(pts)} emulated "
+              f"points): emulate_batch picks unit {best['unit_size'] * 1e6:.0f}"
+              f" um, distance {best['distance'] * 100:.0f} cm (verified "
+              f"{res_b.verified_acc:.4f}); sequential emulate picks "
+              f"{res_s.best_point} ({res_s.verified_acc:.4f}); "
+              f"{res_b.speedup:.0f}x fewer emulations than the grid")
+        # the scores are accuracies over len(ev_y) inputs: one prediction
+        # whose two top logits tie to f32 rounding may flip between the
+        # batched and the sequential pass, nothing more
+        if (res_b.best_point != res_s.best_point
+                or abs(res_b.verified_acc - res_s.verified_acc)
+                > 1.0 / len(ev_y)):
+            raise AssertionError("codesign flow: the DSE's batched and "
+                                 "sequential verifications differ")
+        cfg = DONNConfig(name="codesign", n=N, pixel_size=best["unit_size"],
+                         wavelength=532e-9, distance=best["distance"],
+                         depth=3, det_size=8, codesign="qat",
+                         device_levels=256, use_pallas=True)
+        model = build_model(cfg, device=dev)
+        params = model.init(torch.Generator().manual_seed(1))
+        cfg = dataclasses.replace(cfg, gamma=calibrate_gamma(model, params,
+                                                             xs[:16]))
+        model = build_model(cfg, device=dev)
+        res_t = train_classifier(model, params,
+                                 batch_iterator(xs, ys, 64, seed=3),
+                                 steps=300, lr=0.5, steps_per_call=10)
+        acc_train = evaluate_classifier(
+            model, res_t.params, batch_iterator(xs, ys, 128, seed=4), 4)
+        thick = [float(codesign.to_3d_render(phi, cfg.wavelength).max())
+                 for phi in res_t.params["phase"].values()]
+        slm = [codesign.to_slm(phi, codesign.DeviceSpec(levels=256)).shape
+               for phi in res_t.params["phase"].values()]
+        dep = build_model(dataclasses.replace(cfg, codesign="ptq"),
+                          device=dev)
+        acc_dep = evaluate_classifier(dep, res_t.params,
+                                      batch_iterator(xs, ys, 128, seed=5), 4)
+        print(f"[design] codesign flow steps 2-4: QAT-trained accuracy "
+              f"{acc_train:.4f}; export SLM {slm}, print thickness max "
+              f"{[round(t * 1e6, 3) for t in thick]} um; deployed (PTQ) "
+              f"accuracy {acc_dep:.4f} (gap {acc_train - acc_dep:+.4f})")
+        if not (np.isfinite(acc_train) and np.isfinite(acc_dep)):
+            raise AssertionError("codesign flow: no accuracy")
+
+    launches["codesign_flow"] = _counted(codesign_flow)
+    print(f"[design] codesign flow launches {launches['codesign_flow']}")
+    for what, got in launches.items():
+        for name in ("conj_phase_scale", "phase_tf_apply",
+                     "intensity_readout"):
+            if not got[name]:
+                raise AssertionError(f"{what} never launched {name}")
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for got in launches.values():
+        _add(total, got)
+    return total
+
+
+def phase_design(dev, smi: str, profile) -> dict:
+    """The paper's design flow on the card; returns each part's counted
+    launches."""
+    t0 = time.perf_counter()
+    out = {"gumbel": _design_gumbel(dev, smi),
+           "emulate": _design_emulation(dev, smi, profile),
+           "remat": _design_remat(dev, smi),
+           "flows": _design_flows(dev)}
+    print(f"[design] done in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def _lm_serve(arch: str, runs: int = 2) -> dict:
     """``serve.main`` on the card ``runs`` times with the launch counters
     reset just before each; returns the served tokens and the launches."""
@@ -1788,8 +2416,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="FILE", default=None,
                     help="write torch.profiler tables of the serving path "
                          "(FILE), a training chunk (FILE.train), RGB and "
-                         "segmentation serving (FILE.rgb, FILE.seg) and a "
-                         "qwen1.5-4b decode step at 8 slots (FILE.lm)")
+                         "segmentation serving (FILE.rgb, FILE.seg), an "
+                         "emulate_batch call of 8 candidates (FILE.design) "
+                         "and a qwen1.5-4b decode step at 8 slots (FILE.lm)")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     smi = phase_device()
@@ -1802,6 +2431,7 @@ def main(argv=None) -> int:
     train = phase_train(dev, smi, args.profile)
     phase_cli()
     families = phase_families(dev, smi, args.profile)
+    design = phase_design(dev, smi, args.profile)
     lm_windows = phase_lm(dev, smi, args.profile)
     kernels = []
     for name in ops.KERNELS:
@@ -1812,10 +2442,11 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # the main path: DONN serving and training, the advanced
-            # families, LM serving; the LM holds (K6 on q/k, K7 on the
-            # mixer tensors) apart
+            # families, the design flow, LM serving; the LM holds (K6 on
+            # q/k, K7 on the mixer tensors) apart
             "launches": (launches[name] + train["counted"][name]
                          + sum(f[name] for f in families.values())
+                         + sum(d[name] for d in design.values())
                          + sum(v for w, v in lm_launches.items()
                                if w.startswith("lm_serve"))),
             "hold_launches": sum(v for w, v in lm_launches.items()
@@ -1824,6 +2455,7 @@ def main(argv=None) -> int:
             "train_launches": {eng: c[name]
                                for eng, c in train["per_step"].items()},
             "family_launches": {f: c[name] for f, c in families.items()},
+            "design_launches": {d: c[name] for d, c in design.items()},
             "lm_launches": lm_launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

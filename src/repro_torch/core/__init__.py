@@ -1,14 +1,19 @@
-"""LightRidge core on PyTorch: the training and serving slices of the DONN
-framework (classify, RGB, segmentation and heterogeneous stacks)."""
+"""LightRidge core on PyTorch: the DONN framework's training, serving and
+design slices (classify, RGB, segmentation and heterogeneous stacks; rng
+codesign, batched emulation, the DSL and the DSE)."""
 from repro_torch.core.config import DONNConfig, LayerSpec
 from repro_torch.core.diffraction import Grid, intensity, transfer_function
 from repro_torch.core.laser import Laser, data_to_cplex
-from repro_torch.core.layers import Detector
+from repro_torch.core.layers import Detector, DiffractiveLayer
 from repro_torch.core.models import (
     DONN,
     MultiChannelDONN,
     SegmentationDONN,
     build_model,
+    cached_apply,
+    cached_model,
+    clear_emulation_caches,
+    emulate_batch,
 )
 from repro_torch.core.physics import (
     PhysicsValidationError,
@@ -19,14 +24,17 @@ from repro_torch.core.physics import (
 from repro_torch.core.propagation import (
     PropagationPlan,
     SegmentedPlan,
+    clear_plan_cache,
+    plan_cache_stats,
     plan_from_config,
 )
 
 __all__ = [
     "DONNConfig", "LayerSpec", "Grid", "intensity", "transfer_function",
-    "Laser", "data_to_cplex", "Detector", "DONN", "MultiChannelDONN",
-    "SegmentationDONN", "build_model",
+    "Laser", "data_to_cplex", "Detector", "DiffractiveLayer", "DONN",
+    "MultiChannelDONN", "SegmentationDONN", "build_model", "cached_apply",
+    "cached_model", "clear_emulation_caches", "emulate_batch",
     "PhysicsValidationError", "PhysicsViolation", "PhysicsWarning",
     "validate_config", "PropagationPlan", "SegmentedPlan",
-    "plan_from_config",
+    "clear_plan_cache", "plan_cache_stats", "plan_from_config",
 ]

@@ -3,8 +3,8 @@
 A verbatim copy of ``repro.core.config``: the port keeps its own copy so it
 imports nothing of the JAX package, and the field list is pinned equal to
 the reference's by tests/test_torch_geometry.py.  ``scan_unroll`` steers
-only JAX machinery and has no effect in the port; ``remat`` other than
-``"none"`` is refused when a plan is built (it waits for its own slice).
+only JAX machinery and has no effect in the port; ``remat`` maps to
+``torch.utils.checkpoint`` (``propagation.PropagationPlan``).
 """
 from __future__ import annotations
 

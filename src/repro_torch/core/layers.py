@@ -76,12 +76,23 @@ class DiffractiveLayer:
             return df.crop_field(df.propagate_tf(df.pad_field(u, n), h), n)
         return df.propagate_tf(u, h)
 
-    def modulate(self, phi: torch.Tensor, u: torch.Tensor,
-                 rng=None) -> torch.Tensor:
-        phi_eff = cd.apply_codesign(phi, self.device, self.codesign_mode, rng)
+    def phase(self, phi: torch.Tensor, rng=None) -> torch.Tensor:
+        """The phase the device holds for ``phi``: its codesign response,
+        with one Gumbel draw from ``rng`` (a ``torch.Generator``) in the
+        stochastic modes.  A (C, n, n) stack shares the draw."""
+        return cd.apply_codesign(phi, self.device, self.codesign_mode, rng)
+
+    def apply_phase(self, phi_eff: torch.Tensor,
+                    u: torch.Tensor) -> torch.Tensor:
+        """gamma * u * exp(j phi_eff) for an already resolved phase: K4
+        under ``use_pallas``."""
         if self.use_pallas:
             return kops.phase_apply(u, phi_eff, self.gamma)
         return u * (self.gamma * torch.exp(1j * phi_eff.to(torch.complex64)))
+
+    def modulate(self, phi: torch.Tensor, u: torch.Tensor,
+                 rng=None) -> torch.Tensor:
+        return self.apply_phase(self.phase(phi, rng), u)
 
     def __call__(self, phi: torch.Tensor, u: torch.Tensor,
                  rng=None) -> torch.Tensor:

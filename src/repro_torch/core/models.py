@@ -13,8 +13,15 @@ Each runs on either engine — ``"scan"``, the fused plan
 (``PropagationPlan``, or ``SegmentedPlan`` for a heterogeneous config;
 K1/K2 under ``use_pallas``), or ``"eager"``, the per-layer
 ``DiffractiveLayer`` loop (K4 under ``use_pallas``) that the reference
-keeps as its own reference path.  Both are differentiable in the phases.
-The batched emulation runtime comes with a later slice.
+keeps as its own reference path.  Both are differentiable in the phases,
+and both take ``rng``, a ``torch.Generator`` for the Gumbel codesign
+noise, and consume it identically: the whole stack resolves first, one
+draw a layer in layer order (``codesign.py``'s rng contract).
+
+The emulation runtime (the DSE verification path): ``emulate_batch``
+scores K candidate geometries (wavelength, pitch, distances, depth) in
+one pass, the candidates as one candidate-major field through K1/K2/K3;
+``cached_model``/``cached_apply`` reuse one model per config.
 
 Parameters are a plain nested dict in the reference's layout,
 ``{"phase": {"layer_i": float32 tensor}}`` — (n_i, n_i) per layer (ragged
@@ -26,12 +33,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import codesign as cd
 from repro_torch.core import diffraction as df
+from repro_torch.core import propagation as pp
+from repro_torch.core.cache import lru_get, lru_put
 from repro_torch.core.config import DONNConfig
 from repro_torch.core.laser import Laser, data_to_cplex
 from repro_torch.core.layers import Detector, DiffractiveLayer
@@ -41,18 +51,21 @@ from repro_torch.kernels import ops as kops
 
 
 def channel_readout(u: torch.Tensor, masks: torch.Tensor,
-                    use_pallas: bool) -> torch.Tensor:
+                    use_pallas: bool, dim: int = -3) -> torch.Tensor:
     """Multi-channel detector accumulation, shared by every path.
 
     (..., C, n, n) per-channel output fields -> (..., num_classes): the
     incoherent channel sum pooled over the per-class detector regions,
     through K3 under ``use_pallas`` or one contraction otherwise.  Training
-    (``MultiChannelDONN.apply``, both engines) and serving
-    (``repro_torch.runtime.inference``) both read out here.
+    (``MultiChannelDONN.apply``, both engines), batched emulation
+    (``emulate_batch``, whose (K, C, B, n, n) field has its channels at
+    ``dim=1``) and serving (``repro_torch.runtime.inference``) all read
+    out here.
     """
     if use_pallas:
-        return kops.channel_intensity_readout(u, masks)
-    return torch.einsum("...dhw,chw->...c", df.intensity(u), masks)
+        return kops.channel_intensity_readout(u, masks, dim)
+    return torch.einsum("...dhw,chw->...c", df.intensity(u.movedim(dim, -3)),
+                        masks)
 
 
 def _build_layers(cfg: DONNConfig, gamma: float):
@@ -127,19 +140,25 @@ class _PhaseStack:
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         return data_to_cplex(x, self.in_grid.n) * self.source_t
 
+    def resolve(self, params, rng=None) -> list:
+        """Each layer's device phase (``DiffractiveLayer.phase``), in layer
+        order: one draw a layer from ``rng``."""
+        return [layer.phase(params["phase"][f"layer_{i}"], rng)
+                for i, layer in enumerate(self.layers)]
+
     def fields(self, params, x: torch.Tensor, rng=None) -> list:
         """All intermediate fields of the eager engine (lr.model.prop_view):
         the encoded input, each layer's output and the detector plane."""
-        if rng is not None:
-            raise NotImplementedError(
-                "rng-driven codesign comes with the DSE/codesign slice"
-            )
+        return self._run(self.resolve(params, rng), x)
+
+    def _run(self, phases: list, x: torch.Tensor) -> list:
+        """The eager engine on resolved phases (``resolve``)."""
         u = self.encode(x)
         out = [u]
         cur = self.in_grid
-        for i, layer in enumerate(self.layers):
+        for layer, phi in zip(self.layers, phases):
             u = df.resample_field(u, cur, layer.grid)  # no-op on equal grids
-            u = layer(params["phase"][f"layer_{i}"], u)
+            u = layer.apply_phase(phi, layer.propagate(u))
             cur = layer.grid
             out.append(u)
         u = self.final.propagate(u)
@@ -221,13 +240,13 @@ class MultiChannelDONN:
         return self.channel_model.stacked_phases(params)
 
     def apply(self, params, x: torch.Tensor, rng=None) -> torch.Tensor:
-        """x: (..., C, h, w) multi-channel images -> (..., num_classes)."""
+        """x: (..., C, h, w) multi-channel images -> (..., num_classes).
+        The channels share each layer's draw from ``rng``."""
         cm = self.channel_model
         if self.cfg.engine == "eager":
+            phases = cm.resolve(params, rng)  # (C, n, n) a layer
             u = torch.stack([
-                cm.fields({"phase": {k: v[c] for k, v in
-                                     params["phase"].items()}},
-                          x[..., c, :, :], rng)[-1]
+                cm._run([p[c] for p in phases], x[..., c, :, :])[-1]
                 for c in range(self.cfg.channels)
             ], dim=-3)  # (..., C, n, n) per-channel output fields
         else:
@@ -266,7 +285,10 @@ class SegmentationDONN(_PhaseStack):
 
     def apply(self, params, x: torch.Tensor, rng=None,
               train: bool = False) -> torch.Tensor:
-        """Images (..., h, w) -> per-pixel intensity map (..., n, n)."""
+        """Images (..., h, w) -> per-pixel intensity map (..., n, n).  The
+        stack resolves its codesign once (one draw a layer from ``rng``)
+        and both halves of the skip split run on it, as the reference's two
+        forwards on one key stack do."""
         skip_u = None
         if self.cfg.engine == "eager":
             fields = self.fields(params, x, rng)
@@ -274,25 +296,30 @@ class SegmentationDONN(_PhaseStack):
             if self.skip_from is not None:
                 skip_u = fields[self.skip_from + 1]
         else:
-            if rng is not None:
-                raise NotImplementedError(
-                    "rng-driven codesign comes with the DSE/codesign slice"
-                )
-            phis = self.stacked_phases(params)
+            phis = self.plan.codesign_stack(self.stacked_phases(params), rng)
             u = self.encode(x)
             if self.skip_from is None:
-                u = self.plan.forward(phis, u)
+                u = self.plan.forward(phis, u, resolved=True)
             else:
-                u = self.plan.forward(phis, u, stop=self.skip_from + 1)
+                u = self.plan.forward(phis, u, stop=self.skip_from + 1,
+                                      resolved=True)
                 skip_u = u
-                u = self.plan.forward(phis, u, start=self.skip_from + 1)
+                u = self.plan.forward(phis, u, start=self.skip_from + 1,
+                                      resolved=True)
             u = self.plan.propagate_final(u)
-        inten = skip_combine(u, skip_u, self.skip_hop, self.grid)
-        if train and self.cfg.layer_norm:
-            mean = torch.mean(inten, dim=(-2, -1), keepdim=True)
-            var = torch.var(inten, dim=(-2, -1), correction=0, keepdim=True)
-            inten = (inten - mean) * torch.rsqrt(var + 1e-6)
+        return layer_norm(skip_combine(u, skip_u, self.skip_hop, self.grid),
+                          train and self.cfg.layer_norm)
+
+
+def layer_norm(inten: torch.Tensor, on: bool) -> torch.Tensor:
+    """The segmentation DONN's train-time layer norm over each map (a
+    no-op when ``on`` is False): ``SegmentationDONN.apply`` and
+    ``emulate_batch`` both end here."""
+    if not on:
         return inten
+    mean = torch.mean(inten, dim=(-2, -1), keepdim=True)
+    var = torch.var(inten, dim=(-2, -1), correction=0, keepdim=True)
+    return (inten - mean) * torch.rsqrt(var + 1e-6)
 
 
 def skip_combine(u: torch.Tensor, skip_u, skip_hop,
@@ -329,3 +356,282 @@ def config_static_key(cfg: DONNConfig) -> tuple:
             tuple(sorted(l.items())) for l in d["layers"]
         )
     return tuple(sorted(d.items()))
+
+
+# --------------------------------------------------------------------------
+# Emulation runtime (the DSE verification path)
+# --------------------------------------------------------------------------
+# The reference memoizes models, plans, batched inputs and AOT-compiled
+# executables (``propagation.cached_executable``).  Eager PyTorch compiles
+# nothing, so the port has no executable cache: ``cached_apply`` is the
+# cached model's ``apply``, and what stays memoized is what costs host work
+# to rebuild — models, plans and the stacked per-candidate device inputs.
+_MODEL_CACHE: dict = {}
+_MODEL_CACHE_MAX = 64
+_MODEL_STATS = {"hits": 0, "misses": 0}
+
+# geometry knobs free to vary across one emulate_batch candidate set; every
+# other config field is an architecture static shared by the batch.  depth
+# rides along via depth-padded + masked candidate stacks.
+_GEOMETRY_FIELDS = ("name", "wavelength", "pixel_size", "distance",
+                    "distances", "depth")
+
+
+def _shared_statics_key(cfg: DONNConfig) -> tuple:
+    d = dict(config_static_key(cfg))
+    for f in _GEOMETRY_FIELDS:
+        d.pop(f, None)
+    return tuple(sorted(d.items()))
+
+
+def clear_emulation_caches() -> None:
+    """Clear the model + batched-input memos and the plan cache."""
+    _MODEL_CACHE.clear()
+    _MODEL_STATS.update(hits=0, misses=0)
+    _BATCH_INPUT_CACHE.clear()
+    _BATCH_INPUT_STATS.update(hits=0, misses=0)
+    pp.clear_plan_cache()
+
+
+def model_cache_key(model) -> Optional[tuple]:
+    """Cache identity of a model, or None when not keyable: a model's
+    numerics are a pure function of its config when it exposes ``cfg`` and
+    was built with the default laser (``Laser`` is a frozen dataclass, so
+    default-equivalent explicit lasers compare equal)."""
+    cfg = getattr(model, "cfg", None)
+    if cfg is None:
+        return None
+    inner = getattr(model, "channel_model", model)  # MultiChannelDONN
+    if getattr(inner, "laser", None) != Laser(wavelength=cfg.wavelength):
+        return None
+    return config_static_key(cfg)
+
+
+def cached_model(cfg: DONNConfig, laser: Optional[Laser] = None,
+                 device=None):
+    """Memoized ``build_model`` on ``device`` (default laser only): DSE
+    sweeps and repeated emulations reuse one layer stack + detector per
+    config and device.  Models hold no parameters, so sharing is safe."""
+    if laser is not None:
+        return build_model(cfg, laser, device=device)
+    dev = resolve_device(device)
+    key = (config_static_key(cfg), str(dev))
+    model = lru_get(_MODEL_CACHE, key, _MODEL_STATS)
+    if model is None:
+        model = build_model(cfg, device=dev)
+        lru_put(_MODEL_CACHE, key, model, _MODEL_CACHE_MAX)
+    return model
+
+
+def cached_apply(cfg: DONNConfig, device=None):
+    """``f(params, x, rng=None)``: the cached model's ``apply``, inputs
+    (numpy or tensors) moved to its device as float32."""
+    model = cached_model(cfg, device=device)
+
+    def run(params, x, rng=None):
+        x = torch.as_tensor(x).to(model.device, torch.float32)
+        return model.apply(params, x, rng)
+
+    return run
+
+
+def _stack_phases(params, depth: int,
+                  pad_to: Optional[int] = None) -> torch.Tensor:
+    """(L, ...) phase stack; zero-padded along L to ``pad_to`` if given."""
+    phis = torch.stack([params["phase"][f"layer_{i}"] for i in range(depth)])
+    if pad_to is not None and pad_to > depth:
+        pad = phis.new_zeros((pad_to - depth,) + tuple(phis.shape[1:]))
+        phis = torch.cat([phis, pad])
+    return phis
+
+
+def _pad_planes(planes: np.ndarray, depth: int, pad_to: int) -> np.ndarray:
+    """Pad a (depth+1, ...) TF-plane stack to (pad_to+1, ...).
+
+    Rows [0, depth) are the real layer gaps, row ``depth`` the final hop.
+    Dummy rows (copies of the final-hop plane — any finite plane works,
+    the layer mask makes them identity hops) go *between* the layer gaps
+    and the final hop, so every candidate's final plane sits at the shared
+    index ``pad_to``.
+    """
+    if depth == pad_to:
+        return planes
+    dummy = np.repeat(planes[depth:depth + 1], pad_to - depth, axis=0)
+    return np.concatenate([planes[:depth], dummy, planes[depth:]], axis=0)
+
+
+# candidate-set geometry -> stacked device inputs (TF planes, sources, skip
+# planes).  They are deterministic in the geometry tuple, so warm
+# emulate_batch calls skip the per-candidate host rebuild + re-upload.
+_BATCH_INPUT_CACHE: dict = {}
+_BATCH_INPUT_CACHE_MAX = 32
+_BATCH_INPUT_STATS = {"hits": 0, "misses": 0}
+
+
+def _batched_inputs(cfgs, base, gamma: float, template, has_skip: bool,
+                    dev: torch.device):
+    """Stacked transfer planes, sources and skip planes on ``dev``
+    (memoized): TF planes layer-major, (L+1, K, N, N) each in the template
+    plan's own convention (``template._plane_keys``: polar under
+    ``use_pallas``, cartesian otherwise; bf16 storage under that
+    ``tf_dtype``), so layer i's planes are one contiguous (K, N, N) slab;
+    sources and skip planes (K, N, N).
+
+    Candidates of unequal depth are padded to the deepest one
+    (``template.depth``) by ``_pad_planes``.
+    """
+    key = ("emulate_inputs",
+           tuple(pp.plan_cache_key(c, gamma) for c in cfgs),
+           base.skip_from if has_skip else None, str(dev))
+    hit = lru_get(_BATCH_INPUT_CACHE, key, _BATCH_INPUT_STATS)
+    if hit is not None:
+        return hit
+    plans = [pp.plan_from_config(c, gamma) for c in cfgs]
+    L = template.depth
+
+    def upload(arr):
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+        return t.to(torch.bfloat16) if base.tf_dtype != "float32" else t
+
+    tfs = tuple(
+        upload(np.stack([_pad_planes(p._np[k], p.depth, L) for p in plans],
+                        axis=1))
+        for k in template._plane_keys
+    )
+    sources = torch.from_numpy(np.stack([
+        Laser(wavelength=c.wavelength).field(df.Grid(c.n, c.pixel_size))
+        for c in cfgs
+    ])).to(dev)
+    skip_pair = None
+    if has_skip:
+        # the skip hop covers the remaining distance to the detector plane,
+        # per candidate geometry
+        sk = [pp.transfer_planes(df.Grid(c.n, c.pixel_size),
+                                 float(sum(c.gap_distances()[
+                                     base.skip_from + 1:])),
+                                 c.wavelength, method=base.approximation,
+                                 band_limit=base.band_limit, pad=template.pad)
+              for c in cfgs]
+        skip_pair = tuple(
+            torch.from_numpy(np.stack([p[k] for p in sk])).to(dev)
+            for k in template._plane_keys
+        )
+    entry = (tfs, sources, skip_pair)
+    lru_put(_BATCH_INPUT_CACHE, key, entry, _BATCH_INPUT_CACHE_MAX)
+    return entry
+
+
+def emulate_batch(cfgs: Sequence[DONNConfig], params, x, rng=None,
+                  train: bool = False, device=None) -> torch.Tensor:
+    """Emulate K candidate DONN configs in one pass on ``device``.
+
+    The DSE verification primitive: all cfgs must share architecture
+    statics (n, channels, detector geometry, engine flags), while
+    per-candidate *geometry* — wavelength, pixel_size, distance(s), and
+    **depth** — is free.  The K candidates run as one candidate-major
+    field, (K, B, N, N) ((K, C, B, N, N) for RGB), with layer-major
+    per-candidate planes (``_batched_inputs``): every kernel call reads it
+    as plane-major slabs with no transpose (``PropagationPlan.forward``,
+    ``lead=True``), K3 reads the K*B (K*C*B) rows against the shared
+    masks, and one call replaces K ``build_model(cfg).apply`` calls.
+
+    Ragged-depth candidate sets are depth-padded to the deepest candidate
+    and masked: padded layers pass the carry through, so a 2-layer and a
+    5-layer architecture score in the same pass (per-candidate params
+    required).
+
+    params: one tree shared by every candidate, or a sequence of K trees
+    (required when depths differ), on ``device``.  x: one shared input
+    batch.  rng: one ``torch.Generator``; the candidates draw in turn,
+    each over the padded depth, one draw a layer (the reference splits
+    one key per candidate, each over the padded depth: the same order).
+
+    Returns the stacked (K, ...) outputs of ``build_model(cfg).apply`` per
+    candidate: per-class intensities for classifiers, intensity maps for
+    segmentation (``train=True`` applies the train-time layer norm).
+    """
+    dev = resolve_device(device)
+    cfgs = [c.canonical() for c in cfgs]
+    if not cfgs:
+        raise ValueError("emulate_batch needs at least one candidate")
+    for c in cfgs:
+        if c.layers is not None:
+            raise ValueError(
+                "emulate_batch candidates must be per-candidate-uniform "
+                f"stacks; {c.name!r} has heterogeneous per-layer specs "
+                "(cfg.layers), which cannot share one batched pass yet"
+            )
+    base = cfgs[0]
+    skey = _shared_statics_key(base)
+    for c in cfgs[1:]:
+        if _shared_statics_key(c) != skey:
+            raise ValueError(
+                "emulate_batch candidates must share all non-geometry "
+                "statics (n, channels, detector, engine flags); "
+                f"{c.name!r} differs from {base.name!r}"
+            )
+    K = len(cfgs)
+    n = base.n
+    gamma = 1.0 if base.gamma is None else float(base.gamma)
+    depths = [c.depth for c in cfgs]
+    mixed_depth = len(set(depths)) > 1
+    # the template plan runs every candidate; its depth is the padded
+    # depth (shallower candidates mask their tail)
+    template = pp.plan_from_config(cfgs[int(np.argmax(depths))], gamma)
+    L = template.depth
+    has_skip = base.segmentation and base.skip_from is not None
+    if has_skip and base.skip_from >= min(depths):
+        raise ValueError(
+            f"skip_from={base.skip_from} must precede the shallowest "
+            f"candidate (min depth {min(depths)})"
+        )
+    tfs, sources, skip_pair = _batched_inputs(cfgs, base, gamma, template,
+                                              has_skip, dev)
+    if isinstance(params, (list, tuple)):
+        if len(params) != K:
+            raise ValueError(f"got {len(params)} params for {K} candidates")
+        eff = template.codesign_batch(torch.stack([
+            _stack_phases(p, c.depth, pad_to=L)
+            for p, c in zip(params, cfgs)
+        ]), rng)
+    else:
+        if mixed_depth:
+            raise ValueError(
+                "mixed-depth candidate sets need per-candidate params "
+                "(one tree per depth); got a single shared tree"
+            )
+        one = _stack_phases(params, base.depth)
+        if rng is None:  # one deterministic response serves every candidate
+            eff = template.codesign_stack(one).unsqueeze(1).expand(
+                (L, K) + tuple(one.shape[1:]))
+        else:
+            eff = template.codesign_batch(
+                one.expand((K,) + tuple(one.shape)), rng)
+    mask = None
+    if mixed_depth:
+        # (L, K) layer-validity mask: padded tail layers pass the carry
+        mask = torch.from_numpy(np.arange(L)[:, None]
+                                < np.asarray(depths)[None, :]).to(dev)
+
+    u0 = data_to_cplex(torch.as_tensor(x).to(dev, torch.float32), n)
+    family = ("seg" if base.segmentation
+              else "multi" if base.channels > 1 else "cls")
+    if family == "multi":  # (B, C, n, n) -> (C, B, n, n): channels lead
+        u0 = u0.movedim(-3, 0)
+    u = sources.reshape((K,) + (1,) * (u0.dim() - 2) + (n, n)) * u0
+    kw = dict(tfs=tfs, mask=mask, resolved=True, lead=True)
+    if family != "seg":
+        u = template.apply(eff, u, **kw)
+        if family == "multi":
+            det = cached_model(base, device=dev).channel_model.detector
+            return channel_readout(u, det.masks_t, base.use_pallas, dim=1)
+        return cached_model(base, device=dev).detector(u)
+    if has_skip:
+        u = template.forward(eff, u, stop=base.skip_from + 1, **kw)
+        skip_u = u
+        u = template.forward(eff, u, start=base.skip_from + 1, **kw)
+        u = template.propagate_final(u, tfs=tfs, lead=True)
+        u = (u + template._hop(skip_u, skip_pair, lead=True)) / math.sqrt(2.0)
+    else:
+        u = template.apply(eff, u, **kw)
+    return layer_norm(df.intensity(u), train and base.layer_norm)

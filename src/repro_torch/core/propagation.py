@@ -10,8 +10,12 @@ The port of ``repro.core.propagation`` for serving and training:
 2.  **Layer loop** — ``forward`` runs the modulated layers as a Python
     loop over the stacked ``(L, N, N)`` planes (the reference's
     ``lax.scan``; PyTorch runs eagerly, so the config's ``scan_unroll``
-    has no effect here, and ``remat`` other than ``"none"`` is refused by
-    ``plan_from_config``).
+    has no effect here).  ``remat`` wraps each layer (``"layer"``) or the
+    whole loop (``"segment"``) in ``torch.utils.checkpoint`` without
+    reentrancy, the reference's ``jax.checkpoint`` sites: the backward
+    pass re-runs the layers' forward (K1 launched again) from the saved
+    carries.  The codesign response, Gumbel noise included, resolves
+    before the loop, so a recompute reuses the forward's draws.
 3.  **Hand-written kernels** — with ``use_pallas`` (the reference's name,
     kept) every elementwise site runs a kernel written for Hopper: each
     modulated layer of a plain angular-spectrum plan is the fused spectral
@@ -38,9 +42,18 @@ The port of ``repro.core.propagation`` for serving and training:
     codesign device are each one ``PropagationPlan`` segment, stitched by
     field resampling at grid boundaries (``forward(pre=...)``).
 
-External transfer planes and layer masks for batched DSE emulation,
-rematerialization and rng-driven codesign come with later slices; asking
-for ``remat`` or rng codesign raises ``NotImplementedError``.
+7.  **Candidate batches** — ``forward``/``apply`` take external transfer
+    planes (``tfs``) and a layer mask, and with ``lead=True`` every plane
+    carries leading candidate axes that match the field's: a
+    candidate-major (K, B, N, N) field (RGB: (K, C, B, N, N)) with
+    layer-major (L, K, N, N) planes, so each kernel call reads the field
+    in place as plane-major slabs (``kernels.ops._apply_leading``).  That
+    is how ``apply_batch`` and ``models.emulate_batch`` score K candidate
+    geometries in one pass; masked layers pass the carry through
+    (``torch.where``, a zero gradient into the unselected branch).
+
+rng codesign: ``codesign_stack(phis, rng)`` draws one Gumbel sample a
+layer from a ``torch.Generator``, in layer order (``codesign.py``).
 """
 from __future__ import annotations
 
@@ -49,6 +62,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import codesign as cd
 from repro_torch.core import diffraction as df
@@ -61,12 +75,28 @@ _TF_CACHE_MAX = 512
 
 _PLAN_CACHE: dict = {}
 _PLAN_CACHE_MAX = 64
+_PLAN_STATS = {"hits": 0, "misses": 0}
+
+REMAT = ("none", "layer", "segment")
 
 
 def tf_cache_key(grid: df.Grid, z: float, wavelength: float, method: str,
                  band_limit: bool, pad: bool) -> tuple:
     return (grid.n, float(grid.pixel_size), float(z), float(wavelength),
             method, bool(band_limit), bool(pad))
+
+
+def plan_cache_stats() -> dict:
+    """Plan-cache counters.  The reference also counts compiled
+    executables; eager PyTorch compiles none, so there are no such keys."""
+    return {"hits": _PLAN_STATS["hits"], "misses": _PLAN_STATS["misses"],
+            "size": len(_PLAN_CACHE)}
+
+
+def clear_plan_cache() -> None:
+    """Drop all cached plans and reset the counters."""
+    _PLAN_CACHE.clear()
+    _PLAN_STATS.update(hits=0, misses=0)
 
 
 def transfer_planes(grid: df.Grid, z: float, wavelength: float,
@@ -186,14 +216,20 @@ class PropagationPlan:
         use_pallas: bool = False,
         tf_dtype: str = "float32",
         final_hop: bool = True,
+        remat: str = "none",
     ):
         """``final_hop=False`` builds an inner segment of a heterogeneous
         stack: every gap is a modulated layer's and ``propagate_final`` is
-        unavailable (the next segment owns the following hop)."""
+        unavailable (the next segment owns the following hop).  ``remat``
+        is the checkpoint policy of ``forward``: ``"layer"`` recomputes
+        each layer in the backward pass from its saved carry,
+        ``"segment"`` the whole loop from its input."""
         if method not in df.METHODS:
             raise ValueError(f"unknown method {method!r}")
         if tf_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unknown tf_dtype {tf_dtype!r}")
+        if remat not in REMAT:
+            raise ValueError(f"unknown remat {remat!r}")
         self.grid = grid
         self.gaps = tuple(float(g) for g in gaps)
         self.final_hop = final_hop
@@ -207,6 +243,7 @@ class PropagationPlan:
         self.codesign_mode = codesign_mode
         self.use_pallas = use_pallas
         self.tf_dtype = tf_dtype
+        self.remat = remat
         # split-plane pair the layer body consumes: polar for the kernels,
         # cartesian for the plain complex-multiply path
         self._plane_keys = ("theta", "amp") if use_pallas else ("hr", "hi")
@@ -252,22 +289,39 @@ class PropagationPlan:
                 self._const(self._plane_keys[1], dev))
 
     # --- elementwise sites ---
-    def _spectral_mul(self, s: torch.Tensor, pair) -> torch.Tensor:
+    # ``lead``: the planes carry leading candidate axes matching the
+    # field's (a candidate-major field, ``forward``'s docstring); otherwise
+    # they broadcast from the trailing axes, as the reference's do.
+    @staticmethod
+    def _bcast(plane: torch.Tensor, u: torch.Tensor,
+               lead: bool) -> torch.Tensor:
+        """A plane shaped to broadcast against the field u."""
+        if not lead:
+            return plane
+        return plane.reshape(tuple(plane.shape[:-2])
+                             + (1,) * (u.dim() - plane.dim())
+                             + tuple(plane.shape[-2:]))
+
+    def _spectral_mul(self, s: torch.Tensor, pair,
+                      lead: bool = False) -> torch.Tensor:
         """Multiply a spectrum (or far-field plane) by one layer's TF pair."""
         a, b = (p.float() for p in pair)
         if not self.use_pallas:
-            return s * torch.complex(a, b)  # (hr, hi)
-        return kops.phase_tf_apply(s, a, b)  # (theta, amp)
+            return s * self._bcast(torch.complex(a, b), s, lead)  # (hr, hi)
+        return kops.phase_tf_apply(s, a, b, lead=lead)  # (theta, amp)
 
-    def _modulate(self, u: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    def _modulate(self, u: torch.Tensor, phi: torch.Tensor,
+                  lead: bool = False) -> torch.Tensor:
         """gamma * u * exp(j phi)."""
         if not self.use_pallas:
-            return u * (self.gamma * torch.exp(1j * phi.to(torch.complex64)))
+            mod = self.gamma * torch.exp(1j * phi.to(torch.complex64))
+            return u * self._bcast(mod, u, lead)
         return kops.phase_tf_apply(u, phi,
-                                   self._gamma_plane(phi.shape, phi.device))
+                                   self._gamma_plane(phi.shape, phi.device),
+                                   lead=lead)
 
     def _fused_layer(self, u: torch.Tensor, tf_pair, mod=None,
-                     phi=None) -> torch.Tensor:
+                     phi=None, lead: bool = False) -> torch.Tensor:
         """One whole modulated layer, ``M . ifft2(Hc . fft2(u))``, as the
         fused spectral hop (two K1 passes).  The modulation is a phase
         ``phi`` (amp = gamma) or a frozen polar ``mod`` pair."""
@@ -277,7 +331,8 @@ class PropagationPlan:
             amp_m = self._gamma_plane(phi.shape, phi.device)
         else:
             th_m, amp_m = mod
-        return kops.fused_spectral_hop(u, th_h, amp_h, th_m, amp_m)
+        return kops.fused_spectral_hop(u, th_h, amp_h, th_m, amp_m,
+                                       lead=lead)
 
     def _modulate_frozen(self, u: torch.Tensor, pair) -> torch.Tensor:
         """Modulate by one layer's precomputed modulation plane pair: the
@@ -300,7 +355,7 @@ class PropagationPlan:
         otherwise; ``plane_dtype`` picks the storage precision
         (``quantize_frozen_planes``).
         """
-        eff = self._codesign_stack(phis)
+        eff = self.codesign_stack(phis)
         if self.use_pallas:
             pair = (eff, self._gamma_plane(eff.shape, eff.device))
         else:
@@ -308,27 +363,42 @@ class PropagationPlan:
             pair = (m.real, m.imag)
         return quantize_frozen_planes(pair, plane_dtype)
 
-    def _hop(self, u: torch.Tensor, pair) -> torch.Tensor:
+    def _hop(self, u: torch.Tensor, pair, lead: bool = False) -> torch.Tensor:
         """One free-space gap with a prepared TF plane pair."""
         if self.method == df.FRAUNHOFER:
             spec = torch.fft.fftshift(torch.fft.fft2(u), dim=(-2, -1))
-            return self._spectral_mul(spec, pair)
+            return self._spectral_mul(spec, pair, lead)
         if self.pad:
             n = self.grid.n
             up = df.pad_field(u, n)
-            out = torch.fft.ifft2(self._spectral_mul(torch.fft.fft2(up), pair))
+            out = torch.fft.ifft2(self._spectral_mul(torch.fft.fft2(up), pair,
+                                                     lead))
             return df.crop_field(out, n)
-        return torch.fft.ifft2(self._spectral_mul(torch.fft.fft2(u), pair))
+        return torch.fft.ifft2(self._spectral_mul(torch.fft.fft2(u), pair,
+                                                  lead))
 
     # --- codesign ---
-    def _codesign_stack(self, phis: torch.Tensor) -> torch.Tensor:
-        """Per-layer deploy-time device response on a stacked phase tensor."""
+    def codesign_stack(self, phis: torch.Tensor, rng=None) -> torch.Tensor:
+        """Per-layer device response on a stacked phase tensor: layer by
+        layer in order, one Gumbel draw from ``rng`` each in the
+        stochastic modes (a (L, C, N, N) stack's channels share their
+        layer's draw).  What ``forward`` runs on; pass the result back
+        with ``resolved=True`` to run several slices on one draw."""
         if self.device is None or self.codesign_mode == "none":
             return phis
         return torch.stack([
-            cd.apply_codesign(p, self.device, self.codesign_mode, None)
+            cd.apply_codesign(p, self.device, self.codesign_mode, rng)
             for p in phis
         ])
+
+    def codesign_batch(self, phis: torch.Tensor, rng=None) -> torch.Tensor:
+        """(K, L, ...) candidate stacks -> the layer-major (L, K, ...)
+        resolved stack ``forward(lead=True)`` runs: with ``rng``, candidate
+        by candidate, each ``codesign_stack`` (its L draws) in turn;
+        without, one elementwise response a layer covers all K."""
+        if rng is None:
+            return self.codesign_stack(phis.transpose(0, 1))
+        return torch.stack([self.codesign_stack(p, rng) for p in phis], dim=1)
 
     # --- forward ---
     def stack_phases(self, phases) -> torch.Tensor:
@@ -336,21 +406,34 @@ class PropagationPlan:
         return torch.stack(list(phases))
 
     def forward(self, phis: Optional[torch.Tensor], u: torch.Tensor,
-                start: int = 0, stop: Optional[int] = None,
-                frozen=None, pre=None) -> torch.Tensor:
+                rng=None, start: int = 0, stop: Optional[int] = None,
+                tfs=None, mask=None, pre=None, frozen=None,
+                resolved: bool = False, lead: bool = False) -> torch.Tensor:
         """Run layers [start, stop) over the field u.
 
-        ``phis`` is the full (L, N, N) or (L, C, N, N) phase stack (codesign
-        resolves on the whole stack).  ``frozen`` takes the precomputed
-        modulation planes from ``frozen_modulation`` instead — the
-        deployment fast path, which skips the codesign entirely (``phis``
-        is then None).  ``pre`` is applied to the incoming field first: the
-        boundary resample a ``SegmentedPlan`` stitches in.
+        ``phis`` is the full (L, N, N) or (L, C, N, N) phase stack: the
+        codesign resolves on the whole stack, with one draw a layer from
+        ``rng`` (a ``torch.Generator``), so a layer's noise does not depend
+        on the slice.  ``resolved=True`` says ``phis`` already went
+        through ``codesign_stack`` (two slices on one draw, as the
+        segmentation skip runs).  ``tfs`` is an external split-plane
+        pair, each (depth+1, ...), in place of the baked constants;
+        ``mask`` an (L,) bool vector whose False layers pass the carry
+        through (depth-padded candidate stacks).  With ``lead=True`` the
+        stacks are layer-major candidate batches, phis (L, K, ...), tfs
+        (depth+1, K, N, N), mask (L, K), and u is candidate-major
+        (K, ..., N, N) (``apply_batch``).  ``frozen`` takes the
+        precomputed modulation planes from ``frozen_modulation`` instead —
+        the deployment fast path, which skips the codesign entirely
+        (``phis`` is then None).  ``pre`` is applied to the incoming field
+        first: the boundary resample a ``SegmentedPlan`` stitches in.  The
+        plan's ``remat`` checkpoints each layer or the whole loop when a
+        gradient is being recorded.
         """
         stop = self.depth if stop is None else stop
         if pre is not None:
             u = pre(u)
-        a, b = self._tf_pair(u.device)
+        a, b = self._tf_pair(u.device) if tfs is None else tfs
         if frozen is not None:
             frozen = tuple(frozen)
             for i in range(start, stop):
@@ -360,23 +443,47 @@ class PropagationPlan:
                 else:
                     u = self._modulate_frozen(self._hop(u, (a[i], b[i])), mod)
             return u
-        phi_eff = self._codesign_stack(phis)
-        for i in range(start, stop):
-            if self._fuse:
-                u = self._fused_layer(u, (a[i], b[i]), phi=phi_eff[i])
-            else:
-                u = self._modulate(self._hop(u, (a[i], b[i])), phi_eff[i])
-        return u
+        phi_eff = phis if resolved else self.codesign_stack(phis, rng)
 
-    def propagate_final(self, u: torch.Tensor) -> torch.Tensor:
-        """The last free-space hop (layer plane -> detector, no modulation)."""
+        def layer(u, a_l, b_l, phi, m=None):
+            if self._fuse:
+                new = self._fused_layer(u, (a_l, b_l), phi=phi, lead=lead)
+            else:
+                new = self._modulate(self._hop(u, (a_l, b_l), lead), phi,
+                                     lead)
+            if m is None:
+                return new
+            return torch.where(self._bcast(m[..., None, None], new, lead),
+                               new, u)
+
+        remat = self.remat if torch.is_grad_enabled() else "none"
+
+        def run(u, a, b, phi_eff, mask):
+            for i in range(start, stop):
+                args = (u, a[i], b[i], phi_eff[i])
+                if mask is not None:
+                    args += (mask[i],)
+                if remat == "layer":
+                    u = checkpoint(layer, *args, use_reentrant=False)
+                else:
+                    u = layer(*args)
+            return u
+
+        if remat == "segment":
+            return checkpoint(run, u, a, b, phi_eff, mask, use_reentrant=False)
+        return run(u, a, b, phi_eff, mask)
+
+    def propagate_final(self, u: torch.Tensor, tfs=None,
+                        lead: bool = False) -> torch.Tensor:
+        """The last free-space hop (layer plane -> detector, no modulation);
+        ``tfs`` and ``lead`` as in ``forward``."""
         if not self.final_hop:
             raise ValueError(
                 "this plan is an inner segment (final_hop=False); the next "
                 "segment owns the following hop"
             )
-        a, b = self._tf_pair(u.device)
-        return self._hop(u, (a[self.depth], b[self.depth]))
+        a, b = self._tf_pair(u.device) if tfs is None else tfs
+        return self._hop(u, (a[self.depth], b[self.depth]), lead)
 
     # --- real-to-complex first hop -------------------------------------
     def rfft_first_supported(self) -> bool:
@@ -428,16 +535,44 @@ class PropagationPlan:
         return self._modulate_frozen(u, mod)
 
     def apply(self, phis: Optional[torch.Tensor], u: torch.Tensor, rng=None,
-              frozen=None) -> torch.Tensor:
-        """Full stack: all layers then the final hop.  ``frozen`` takes the
-        precomputed modulation planes (``phis`` unused)."""
-        if rng is not None:
-            raise NotImplementedError(
-                "rng-driven codesign comes with the DSE/codesign slice"
-            )
+              tfs=None, mask=None, frozen=None, resolved: bool = False,
+              lead: bool = False) -> torch.Tensor:
+        """Full stack: all layers then the final hop; the arguments are
+        ``forward``'s.  ``frozen`` takes the precomputed modulation planes
+        (``phis`` and ``rng`` unused)."""
         if frozen is not None:
-            return self.propagate_final(self.forward(None, u, frozen=frozen))
-        return self.propagate_final(self.forward(phis, u))
+            return self.propagate_final(
+                self.forward(None, u, tfs=tfs, frozen=frozen), tfs=tfs)
+        return self.propagate_final(
+            self.forward(phis, u, rng, tfs=tfs, mask=mask, resolved=resolved,
+                         lead=lead), tfs=tfs, lead=lead)
+
+    def apply_batch(self, phis: torch.Tensor, u: torch.Tensor, rng=None,
+                    tfs=None, per_candidate_inputs: bool = False,
+                    mask=None) -> torch.Tensor:
+        """K phase configurations in one pass (the reference's vmapped
+        ``apply_batch``): phis (K, L, N, N) or (K, L, C, N, N); u one input
+        for every candidate, or a per-candidate (K, ...) stack with
+        ``per_candidate_inputs``; ``tfs`` per-candidate planes (K,
+        depth+1, N, N) each; ``mask`` a (K, L) bool layer mask; ``rng``
+        one generator, drawn candidate by candidate.  Returns the (K, ...)
+        detector-plane fields.  The candidates run as one candidate-major
+        field, channels ahead of the batch for RGB phases (``lead=True``).
+        """
+        K = phis.shape[0]
+        if not per_candidate_inputs:
+            u = u.expand((K,) + tuple(u.shape))
+        chan = phis.dim() == 5
+        if chan:  # (K, ..., C, N, N) -> (K, C, ..., N, N)
+            u = u.movedim(-3, 1)
+        u = u.contiguous()
+        if tfs is not None:
+            tfs = tuple(t.transpose(0, 1).contiguous() for t in tfs)
+        if mask is not None:
+            mask = mask.transpose(0, 1)
+        out = self.apply(self.codesign_batch(phis, rng), u, tfs=tfs,
+                         mask=mask, resolved=True, lead=True)
+        return out.movedim(1, -3) if chan else out
 
 
 # --------------------------------------------------------------------------
@@ -507,6 +642,7 @@ class SegmentedPlan:
                 use_pallas=cfg.use_pallas,
                 tf_dtype=cfg.tf_dtype,
                 final_hop=last,
+                remat=cfg.remat,
             ))
         self.input_grid = self.segments[0].grid
         self.layer_grids = tuple(df.Grid(s.size, s.pixel_size) for s in specs)
@@ -529,14 +665,31 @@ class SegmentedPlan:
         return tuple(seg.frozen_modulation(p, plane_dtype)
                      for seg, p in zip(self.segments, phis))
 
-    def forward(self, phis, u: torch.Tensor, start: int = 0,
-                stop: Optional[int] = None, frozen=None) -> torch.Tensor:
+    def codesign_stack(self, phis, rng=None) -> tuple:
+        """Each segment's resolved stack, in segment order: the draws go
+        in global layer order 0..L-1, as a uniform plan's do."""
+        return tuple(seg.codesign_stack(p, rng)
+                     for seg, p in zip(self.segments, phis))
+
+    def forward(self, phis, u: torch.Tensor, rng=None, start: int = 0,
+                stop: Optional[int] = None, tfs=None, frozen=None,
+                resolved: bool = False) -> torch.Tensor:
         """Run global layers [start, stop); ``phis`` is the per-segment
         tuple from ``stack_phases`` (or ``frozen`` the per-segment frozen
-        planes).  The incoming field lives on the grid of layer
-        ``start - 1`` (the input grid when start == 0); the returned field
-        on the grid of layer ``stop - 1``."""
+        planes).  The whole stack resolves its codesign first (one draw a
+        layer from ``rng``), so layer i's noise does not depend on the
+        slice; ``resolved`` as in ``PropagationPlan.forward``.  The
+        incoming field lives on the grid of layer ``start - 1`` (the input
+        grid when start == 0); the returned field on the grid of layer
+        ``stop - 1``."""
+        if tfs is not None:
+            raise NotImplementedError(
+                "external transfer planes are a uniform-plan feature "
+                "(batched DSE); segmented plans bake their constants"
+            )
         stop = self.depth if stop is None else stop
+        if frozen is None and not resolved:
+            phis = self.codesign_stack(phis, rng)
         cur = self.layer_grids[start - 1] if start > 0 else self.input_grid
         for k, (lo, hi) in enumerate(self.slices):
             a, b = max(lo, start), min(hi, stop)
@@ -552,7 +705,7 @@ class SegmentedPlan:
                                 frozen=frozen[k], pre=stitch)
             else:
                 u = seg.forward(phis[k], u, start=a - lo, stop=b - lo,
-                                pre=stitch)
+                                pre=stitch, resolved=True)
             cur = seg.grid
         return u
 
@@ -562,13 +715,10 @@ class SegmentedPlan:
         u = self.segments[-1].propagate_final(u)
         return df.resample_field(u, self.segments[-1].grid, self.det_grid)
 
-    def apply(self, phis, u: torch.Tensor, rng=None,
-              frozen=None) -> torch.Tensor:
-        if rng is not None:
-            raise NotImplementedError(
-                "rng-driven codesign comes with the DSE/codesign slice"
-            )
-        return self.propagate_final(self.forward(phis, u, frozen=frozen))
+    def apply(self, phis, u: torch.Tensor, rng=None, frozen=None,
+              resolved: bool = False) -> torch.Tensor:
+        return self.propagate_final(self.forward(phis, u, rng, frozen=frozen,
+                                                 resolved=resolved))
 
 
 def device_spec_from_config(cfg) -> Optional[cd.DeviceSpec]:
@@ -604,17 +754,10 @@ def plan_from_config(cfg, gamma: float):
     Uniform configs get a ``PropagationPlan``; heterogeneous configs
     (``cfg.layers`` surviving canonicalization) a ``SegmentedPlan``.
     Physically invalid geometry raises ``PhysicsValidationError`` before
-    any plane is built.  ``remat`` other than ``"none"``
-    (``torch.utils.checkpoint``) waits for its own slice and raises rather
-    than run without.
+    any plane is built.
     """
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} (torch.utils.checkpoint) comes with a later "
-            "slice; the port stores every layer's activations (remat='none')"
-        )
     key = plan_cache_key(cfg, gamma)
-    plan = lru_get(_PLAN_CACHE, key)
+    plan = lru_get(_PLAN_CACHE, key, _PLAN_STATS)
     if plan is not None:
         return plan
     physics.check_config(cfg)
@@ -635,6 +778,7 @@ def plan_from_config(cfg, gamma: float):
         codesign_mode=cfg.codesign,
         use_pallas=cfg.use_pallas,
         tf_dtype=cfg.tf_dtype,
+        remat=cfg.remat,
     )
     lru_put(_PLAN_CACHE, key, plan, _PLAN_CACHE_MAX)
     return plan

@@ -18,14 +18,19 @@ per-pixel BCE and IoU, and the training loops:
 - ``train_classifier``: the AdamW loop on top, chunked through the device
   prefetcher when ``steps_per_call > 1``.
 
+``needs_rng`` trains a stochastic codesign (Gumbel) with noise: every
+step draws from one ``torch.Generator`` on the model's device, layer by
+layer (``codesign.py``'s rng contract).  The reference splits its key
+before each step; the port's generator advances in place, and the chunked
+and per-step loops draw in the same order, so they train identically.
+
 The reference routes its steps through a process-wide executable cache
 (``optimizer_cache_key``, ``_train_static_key``, ``cached_executable``);
 eager PyTorch compiles nothing, so the port has no counterpart.  Nor does
 it donate buffers (the reference's ``donate``): updates return new
 tensors and never write the caller's.  Checkpoint rollback (``ckpt_dir``,
-``ckpt_every``, ``max_rollbacks``) comes with the persistence slice,
-and rng-driven codesign (``needs_rng``, ``rng``) with the DSE/codesign
-slice.  The segmentation DONN trains through a step written by hand on
+``ckpt_every``, ``max_rollbacks``) comes with the persistence slice.  The
+segmentation DONN trains through a step written by hand on
 ``bce_segmentation_loss``, as the reference's example does.
 """
 from __future__ import annotations
@@ -34,7 +39,6 @@ import dataclasses
 import time
 from typing import Any, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -102,31 +106,45 @@ def _batch(model, xb, yb):
     return x, y
 
 
-def loss_and_grads(model, params, xb, yb, num_classes: int):
+def loss_and_grads(model, params, xb, yb, num_classes: int, rng=None):
     """(loss, logits, grads) of the paper loss at ``params`` for one batch
     (numpy or tensors), everything on the model's device — the gradient
-    half of every training step."""
+    half of every training step.  ``rng`` draws the codesign noise."""
     x, y = _batch(model, xb, yb)
-    return _loss_and_grads(model, params, x, y, num_classes)
+    return _loss_and_grads(model, params, x, y, num_classes, rng)
 
 
-def _loss_and_grads(model, params, x, y, num_classes: int):
+def _loss_and_grads(model, params, x, y, num_classes: int, rng=None):
     flat = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
-        logits = model.apply(tree_unflatten(params, flat), x)
+        logits = model.apply(tree_unflatten(params, flat), x, rng)
         loss = mse_softmax_loss(logits, y, num_classes)
         grads = torch.autograd.grad(loss, flat)
     return loss.detach(), logits.detach(), tree_unflatten(params, grads)
 
 
-def make_train_step(model, optimizer, num_classes: int):
-    """(params, opt_state, step, xb, yb) -> (params, opt_state, loss, acc),
-    loss and acc as device scalars."""
+def _step_rng(needs_rng: bool, rng):
+    """The generator a step draws from: ``rng`` when the model needs noise
+    (it must then be given), else None (no noise even if one is given)."""
+    if not needs_rng:
+        return None
+    if not isinstance(rng, torch.Generator):
+        raise TypeError("needs_rng=True: pass rng, a torch.Generator on the "
+                        "model's device")
+    return rng
 
-    def step_fn(params, opt_state, step, xb, yb):
+
+def make_train_step(model, optimizer, num_classes: int,
+                    needs_rng: bool = False):
+    """(params, opt_state, step, xb, yb[, rng]) -> (params, opt_state, loss,
+    acc), loss and acc as device scalars; with ``needs_rng`` the forward
+    draws its codesign noise from ``rng``."""
+
+    def step_fn(params, opt_state, step, xb, yb, rng=None):
         x, y = _batch(model, xb, yb)
         loss, logits, grads = _loss_and_grads(model, params, x, y,
-                                              num_classes)
+                                              num_classes,
+                                              _step_rng(needs_rng, rng))
         params, opt_state = optimizer.update(grads, opt_state, params, step)
         return params, opt_state, loss, accuracy(logits, y)
 
@@ -141,13 +159,15 @@ def _all_finite(tensors) -> torch.Tensor:
 
 
 def make_train_chunk(model, optimizer, num_classes: int,
-                     guard: bool = False):
+                     needs_rng: bool = False, guard: bool = False):
     """Multi-step training driver: one optimizer step per chunk row.
 
-    Returns ``chunk_fn(params, opt_state, step0, xs, ys) -> (params,
+    Returns ``chunk_fn(params, opt_state, step0, xs, ys[, rng]) -> (params,
     opt_state, losses, accs)`` with (S,) device tensors of per-step losses
     and accuracies — numerically the same as ``make_train_step`` iterated
-    S times.  Nothing in it waits on the device.  ``guard=True`` checks
+    S times, the generator ``rng`` (with ``needs_rng``) drawn step after
+    step as the per-step loop draws it.  Nothing in it waits on the
+    device.  ``guard=True`` checks
     the loss and every gradient for non-finite values on the device; a bad
     step keeps params, optimizer state and the step counter at their
     pre-step values (``torch.where``, bit for bit) and is flagged, and the
@@ -156,13 +176,14 @@ def make_train_chunk(model, optimizer, num_classes: int,
     finite".
     """
 
-    def chunk_fn(params, opt_state, step0, xs, ys):
+    def chunk_fn(params, opt_state, step0, xs, ys, rng=None):
+        rng = _step_rng(needs_rng, rng)
         xs, ys = _batch(model, xs, ys)
         step = torch.as_tensor(step0, dtype=torch.int32, device=model.device)
         losses, accs, skipped = [], [], []
         for xb, yb in zip(xs, ys):
             loss, logits, grads = _loss_and_grads(model, params, xb, yb,
-                                                  num_classes)
+                                                  num_classes, rng)
             losses.append(loss)
             accs.append(accuracy(logits, yb))
             new_params, new_opt = optimizer.update(grads, opt_state, params,
@@ -195,6 +216,8 @@ def train_classifier(
     steps: int,
     lr: float = 0.1,
     num_classes: int = 10,
+    needs_rng: bool = False,
+    rng: Optional[torch.Generator] = None,
     log_every: int = 0,
     steps_per_call: int = 1,
     prefetch: int = 2,
@@ -206,9 +229,12 @@ def train_classifier(
     ``steps_per_call > 1`` switches to the chunked driver
     (``make_train_chunk``): batches stack into chunks uploaded through
     ``device_prefetch`` (``prefetch`` chunks in flight, 0 = off) and the
-    host syncs once per chunk.  Losses and final params equal the
-    per-step path's.  ``guard=True`` (chunked path only) skips non-finite
-    steps as exact no-ops, counted in ``TrainResult.skipped_steps``.
+    host syncs once per chunk.  Losses, the draws from ``rng`` and the
+    final params equal the per-step path's.  ``needs_rng`` draws the
+    codesign noise from ``rng`` (a ``torch.Generator`` on the model's
+    device; seed 0 there when not given).  ``guard=True`` (chunked path
+    only) skips non-finite steps as exact no-ops, counted in
+    ``TrainResult.skipped_steps``.
     """
     if ckpt_dir is not None:
         raise NotImplementedError(
@@ -217,17 +243,19 @@ def train_classifier(
         )
     optimizer = AdamW(lr=lr)
     opt_state = optimizer.init(params)
+    if needs_rng and rng is None:
+        rng = torch.Generator(device=model.device).manual_seed(0)
     losses, accs = [], []
     t0 = time.perf_counter()
     if guard and steps_per_call <= 1:
         raise ValueError("guard=True requires the chunked driver "
                          "(steps_per_call > 1)")
     if steps_per_call <= 1:
-        step_fn = make_train_step(model, optimizer, num_classes)
+        step_fn = make_train_step(model, optimizer, num_classes, needs_rng)
         for i in range(steps):
             xb, yb = next(data_iter)
             params, opt_state, loss, acc = step_fn(params, opt_state, i, xb,
-                                                   yb)
+                                                   yb, rng)
             losses.append(float(loss))
             accs.append(float(acc))
             if log_every and (i % log_every == 0):
@@ -239,7 +267,8 @@ def train_classifier(
 
     # the caller's tensors are never the ones training hands back
     params = tree_map(torch.clone, params)
-    chunk_fn = make_train_chunk(model, optimizer, num_classes, guard=guard)
+    chunk_fn = make_train_chunk(model, optimizer, num_classes, needs_rng,
+                                guard=guard)
     chunks = stack_batches(data_iter, steps_per_call, total=steps)
     if prefetch:
         chunks = device_prefetch(chunks, size=prefetch, device=model.device)
@@ -248,7 +277,7 @@ def train_classifier(
     # bias-correction counter — they diverge when guarded steps are skipped
     i, opt_step = 0, 0
     for xs, ys in chunks:
-        out = chunk_fn(params, opt_state, opt_step, xs, ys)
+        out = chunk_fn(params, opt_state, opt_step, xs, ys, rng)
         n = int(xs.shape[0])
         if guard:
             params, opt_state, closs, cacc, skipped, _ = out

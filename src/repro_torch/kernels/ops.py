@@ -485,16 +485,47 @@ def _apply_stacked(fn, x, planes):
     return fn(flat, [p[None] for p in planes], flat.shape[0]).reshape(x.shape)
 
 
-def phase_tf_apply(x, theta, amp):
+def _apply_leading(fn, x, planes):
+    """Run ``fn(x3, planes3, nb)`` with the plane axes *leading*: planes
+    (*P, H, W) and x (*P, ..., H, W), so plane p owns the slabs [p*nb,
+    (p+1)*nb) of x as it lies in memory — the kernels' plane-major
+    contract with no transpose (a candidate-major field of
+    ``emulate_batch``: P = (K,) or (K, C), nb the fields of each)."""
+    pshape = tuple(planes[0].shape[:-2])
+    H, W = planes[0].shape[-2:]
+    if tuple(x.shape[:len(pshape)]) != pshape:
+        raise ValueError(
+            f"leading plane axes {pshape} must match the leading axes of x "
+            f"{tuple(x.shape)}"
+        )
+    P = math.prod(pshape)
+    x3 = x.reshape(-1, H, W)
+    out = fn(x3, [p.reshape(P, H, W) for p in planes], x3.shape[0] // P)
+    return out.reshape(x.shape)
+
+
+def _lead_aligned(planes):
+    """Planes with leading plane axes broadcast to one shape: each gets
+    unit axes *after* its own leading axes (a (K, H, W) transfer plane
+    against (K, C, H, W) phases is (K, 1, H, W)), then expands."""
+    r = max(p.dim() for p in planes)
+    planes = [p.reshape(tuple(p.shape[:-2]) + (1,) * (r - p.dim())
+                        + tuple(p.shape[-2:])) for p in planes]
+    bshape = torch.broadcast_shapes(*(p.shape for p in planes))
+    return tuple(p.expand(bshape).contiguous() for p in planes)
+
+
+def phase_tf_apply(x, theta, amp, lead: bool = False):
     """x * amp * exp(j theta) through K2 (``ops.phase_tf_apply``'s contract).
 
     x: complex (..., H, W); theta/amp: (H, W) shared by every field, or a
-    plane stack (*P, H, W) with x: (..., *P, H, W).
+    plane stack (*P, H, W) with x: (..., *P, H, W).  ``lead=True`` takes
+    the plane axes leading instead, x: (*P, ..., H, W) (``_apply_leading``).
     """
-    return _apply_stacked(
-        lambda x3, p, nb: _PhaseTFApply.apply(x3, p[0], p[1], nb),
-        x, (theta, amp),
-    )
+    fn = lambda x3, p, nb: _PhaseTFApply.apply(x3, p[0], p[1], nb)  # noqa: E731
+    if lead:
+        return _apply_leading(fn, x, _lead_aligned((theta, amp)))
+    return _apply_stacked(fn, x, (theta, amp))
 
 
 def _fused_hop_planes(x3, planes, nb: int):
@@ -506,7 +537,7 @@ def _fused_hop_planes(x3, planes, nb: int):
     return conj_phase_scale(w, th_m, amp_m, nb, 1.0, 1.0 / (H * W))
 
 
-def fused_spectral_hop(x, theta_h, amp_h, theta_m, amp_m):
+def fused_spectral_hop(x, theta_h, amp_h, theta_m, amp_m, lead: bool = False):
     """One hop + modulation, M . ifft2(Hc . fft2(x)), through two K1 passes.
 
     fft2 -> K1(-theta_h, amp_h) -> fft2 -> K1(+theta_m, amp_m / (H*W)), via
@@ -514,12 +545,16 @@ def fused_spectral_hop(x, theta_h, amp_h, theta_m, amp_m):
     the port stays numerically close to it.  The four planes broadcast to
     one shape: (H, W) for every field or a (*P, H, W) stack — outside the
     autograd Function, so d theta_m folds back to the caller's shape.
+    ``lead=True`` takes the plane axes leading, x: (*P, ..., H, W), as
+    ``phase_tf_apply`` does.
     """
     planes = (theta_h, amp_h, theta_m, amp_m)
+    fn = lambda x3, p, nb: _FusedHop.apply(x3, *p, nb)  # noqa: E731
+    if lead:
+        return _apply_leading(fn, x, _lead_aligned(planes))
     bshape = torch.broadcast_shapes(*(p.shape for p in planes))
     planes = tuple(p.expand(bshape).contiguous() for p in planes)
-    return _apply_stacked(
-        lambda x3, p, nb: _FusedHop.apply(x3, *p, nb), x, planes)
+    return _apply_stacked(fn, x, planes)
 
 
 def intensity_readout(u, masks):
@@ -529,14 +564,17 @@ def intensity_readout(u, masks):
     return out.reshape(tuple(u.shape[:-2]) + (masks.shape[0],))
 
 
-def channel_intensity_readout(u, masks):
+def channel_intensity_readout(u, masks, dim: int = -3):
     """(..., C, H, W) multi-channel fields + (K, H, W) masks -> (..., K).
 
     The RGB detector (``ops.channel_intensity_readout``): K3 over the
     (B*C) field rows, then the incoherent sum over the channels.  No new
     kernel and no atomics, so a retried batch stays bit-identical.
+    ``dim`` names the channel axis of u (a candidate-major (K, C, B, H, W)
+    field of ``emulate_batch`` has it at 1): K3 reads the rows in memory
+    order whatever it is.
     """
-    return intensity_readout(u, masks).sum(dim=-2)
+    return intensity_readout(u, masks).sum(dim=dim + 1 if dim < 0 else dim)
 
 
 def phase_apply(u, phi, gamma: float = 1.0):

@@ -569,3 +569,81 @@ def test_lm_smoke_configs_on_the_card_match_cpu(cuda):
     assert serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--slots", "2",
                        "--requests", "3", "--prompt-len", "3", "--max-new",
                        "4", "--device", "cuda"]) == 12
+
+
+def _no_plane_major(monkeypatch):
+    def forbidden(*a, **k):
+        raise AssertionError("a plane-major transpose on the batched path")
+
+    monkeypatch.setattr(ops, "_plane_major", forbidden)
+
+
+def test_emulate_batch_runs_k_major_slabs_through_the_kernels(cuda,
+                                                              monkeypatch):
+    """K candidates of each family as one candidate-major field: K1 twice a
+    layer and K2 once for all K (the final hop; segmentation's skip hop is
+    a second K2), K3 once over the K*B (K*C*B) rows, never a plain version
+    or a plane-major transpose; against the same call on CPU copies."""
+    from repro_torch.core.models import emulate_batch
+
+    geos = [(36e-6, 0.05), (30e-6, 0.04), (40e-6, 0.06)]
+    cases = {
+        "cls": (dict(), (4, 28, 28), dict(phase_tf_apply=1,
+                                          intensity_readout=1)),
+        "rgb": (dict(channels=3, num_classes=6), (4, 3, 28, 28),
+                dict(phase_tf_apply=1, intensity_readout=1)),
+        "seg": (dict(segmentation=True, skip_from=0, layer_norm=True),
+                (4, 28, 28), dict(phase_tf_apply=2)),
+    }
+    for family, (kw, shape, launches) in cases.items():
+        cfgs = [dataclasses.replace(CFG, pixel_size=ps, distance=D, **kw)
+                for ps, D in geos]
+        model = build_model(cfgs[0], device=cuda)
+        params = [model.init(torch.Generator().manual_seed(k))
+                  for k in range(3)]
+        x = np.random.default_rng(2).random(shape, np.float32)
+        kwargs = dict(train=True) if family == "seg" else {}
+        want = emulate_batch(cfgs, [tree_map(lambda t: t.cpu(), p)
+                                    for p in params], x, device="cpu",
+                             **kwargs)
+        with monkeypatch.context() as m:
+            _forbid_plain_versions(m)
+            _no_plane_major(m)
+            ops.reset_launch_counts()
+            got = emulate_batch(cfgs, params, x, device=cuda, **kwargs)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+        assert counts == {**dict.fromkeys(ops.KERNELS, 0),
+                          "conj_phase_scale": 2 * CFG.depth, **launches}, \
+            family
+        assert _rel(got, want) <= 1e-4, family
+
+
+def test_remat_backward_relaunches_exactly_the_forward_kernels(cuda):
+    """A scan training step launches K1 2L, K2 2L and K3 once; ``remat``
+    ("layer" or "segment") re-runs every layer's forward in the backward
+    pass, 2L more K1 launches and nothing else, and the gradients equal
+    the step without it."""
+    cfg = dataclasses.replace(CFG, depth=3, codesign="gumbel",
+                              device_levels=16)
+    x = torch.from_numpy(
+        np.random.default_rng(3).random((4, 28, 28), np.float32)).to(cuda)
+    grads = {}
+    for remat in ("none", "layer", "segment"):
+        model = build_model(dataclasses.replace(cfg, remat=remat),
+                            device=cuda)
+        params = model.init(torch.Generator().manual_seed(0))
+        leaves = [p.requires_grad_(True) for p in params["phase"].values()]
+        gen = torch.Generator(device=cuda).manual_seed(4)
+        ops.reset_launch_counts()
+        loss = model.apply(params, x, gen).square().sum()
+        grads[remat] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        L = cfg.depth
+        assert ops.launch_counts() == {
+            **dict.fromkeys(ops.KERNELS, 0),
+            "conj_phase_scale": 2 * L + (0 if remat == "none" else 2 * L),
+            "phase_tf_apply": 2 * L, "intensity_readout": 1}, remat
+    for remat in ("layer", "segment"):
+        for g, g0 in zip(grads[remat], grads["none"]):
+            assert _rel(g, g0) <= 1e-6, remat

@@ -229,6 +229,8 @@ def test_weight_fab_indices_match_reference():
 
 
 def test_rng_codesign_is_refused():
+    """Gumbel noise comes from a ``torch.Generator`` and nothing else (the
+    noise itself: tests/test_torch_design.py)."""
     dev = tcd.DeviceSpec(levels=4)
-    with pytest.raises(NotImplementedError, match="DSE/codesign slice"):
-        tcd.apply_codesign(torch.zeros(4), dev, "gumbel", rng=object())
+    with pytest.raises(TypeError, match="Generator"):
+        tcd.apply_codesign(torch.zeros(4, 4), dev, "gumbel", rng=object())

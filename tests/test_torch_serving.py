@@ -380,8 +380,10 @@ def test_eager_engine_builds_and_serves_like_apply():
 
 
 def test_rng_apply_refused(qat_pair):
+    """An rng that is not a ``torch.Generator`` is refused, in every
+    codesign mode (rng codesign itself: tests/test_torch_design.py)."""
     tm, tp, _, _ = qat_pair[False]
-    with pytest.raises(NotImplementedError, match="DSE/codesign slice"):
+    with pytest.raises(TypeError, match="Generator"):
         tm.apply(tp, torch.from_numpy(_digits(1)), rng=object())
 
 

@@ -187,10 +187,15 @@ def test_calibrate_gamma_matches_reference():
 
 
 def test_remat_and_rng_are_refused():
-    with pytest.raises(NotImplementedError, match="remat"):
-        _models(depth=2, remat="layer")[0].plan
-    tm, _ = _models(depth=2, engine="eager")
-    with pytest.raises(NotImplementedError, match="DSE/codesign"):
+    """remat and rng codesign run now (tests/test_torch_design.py); what
+    is refused is a policy the reference does not know and an rng that is
+    not a ``torch.Generator``."""
+    with pytest.raises(ValueError, match="remat"):
+        _models(depth=2, remat="everything")
+    assert _models(depth=2, remat="layer")[0].plan.remat == "layer"
+    tm, _ = _models(depth=2, engine="eager", codesign="gumbel",
+                    device_levels=8)
+    with pytest.raises(TypeError, match="Generator"):
         tm.apply(_to_torch(_np_params(2, 32)),
                  torch.from_numpy(_batch(1)[0]), rng=object())
 

@@ -49,8 +49,9 @@ script exits non-zero without the final line:
    rows (scan + kernels, eager + K4, plain torch), each a closed loop of
    WINDOW_S seconds, REPEATS times, rows interleaved; then
    ``serve_donn --train-steps 16`` at the config's width.
-6. cli     — runs ``repro_torch.launch.serve_donn.main`` once at the
-   config's width.
+6. cli     — runs ``repro_torch.launch.serve_donn.main`` at the config's
+   width: once as is, once with ``--save-artifact``, and once from that
+   artifact with ``--artifact --replicas 2`` (a two-replica fleet).
 7. families — the paper's advanced DONNs, parameters from seeded
    generators on the card, each result held against a CPU copy (plain
    versions) within SLICE_RTOL: ``donn-rgb`` (n=200, 3 channels, 6
@@ -99,6 +100,28 @@ script exits non-zero without the final line:
    the same way and K7 is held against ``ssm._selective_scan`` on layer
    0's mixer tensors (dt, x, B, C, A) of a batch-8, S=2048 prefill.  Each
    model is freed before the next is built.
+10. persistence — artifacts, supervision, the fleet and rollback on the
+   card, every hold raising: ``donn-mnist-5l`` (f32, bf16, int8, f32 with
+   ``rfft_first``), ``donn-rgb``, ``donn-seg`` and ``hybrid-slm-printed``
+   are saved and cold-started with ``load_deployed`` (no device: the
+   card), bitwise equal to the in-memory deployment at buckets 1, 8 and
+   32 and within SLICE_RTOL of a CPU load of the same artifact, with the
+   ms of the load, the warmup and the first request; the committed
+   JAX-written fixture (``tests/fixtures/jax_artifact_n64``) served within
+   1e-4 of its JAX outputs, argmax equal; ``corrupt_chunk`` and
+   ``flip_crc`` refused at load, format 99 by ``validate_artifact``;
+   ``EngineSupervisor`` over a ``CrashingEngine`` through 5 kill/restart
+   cycles (outputs bitwise, ``memory_allocated`` flat within one
+   deployment's bytes); ``FleetRouter.from_artifact`` at 1, 2 and 4
+   replicas beside ``MicroBatcher`` (128 requests in flight, bucket 32,
+   WINDOW_S a row, REPEATS times, rows interleaved, with each row's mean
+   batch fill); ``kill_replica`` mid-run and a rolling ``swap_artifact`` under load
+   (zero drops, bitwise outputs); ``train_classifier`` with ``ckpt_dir``
+   over a fully poisoned chunk (one rollback, losses bitwise a clean
+   run's) and a timed ``AsyncCheckpointer.save``; ``perturb_frozen``
+   (no fault is the identity; accuracy at phase sigma 0.1, 0.5, 1.0 on the
+   card and the CPU copy, equal).  Its K1-K3 launches are held against
+   what its engines' forwards and training steps owe.
 
 Phase 3 also holds K5 complex_mul (32x200x200 x (200, 200); at odd
 37x53, a[1:] and a[1:3] of an odd batch, whose starts are 8 bytes off 16),
@@ -111,8 +134,9 @@ the timed shape B 8, S 2048, D 8192, N 16 both ways; each case repeats
 to the bit and its batch row 1 alone equals the row inside its batch.
 
 Then one JSON line lists every kernel with its launches on the main path
-(DONN serving + training, the families, the design flow, LM serving) and
-in the LM holds apart, its launches per training step on each engine,
+(DONN serving + training, the families, the design flow, LM serving,
+persistence; the last also under ``persistence_launches``) and in the LM
+holds apart, its launches per training step on each engine,
 per family, per design part and per LM window, error and times, and the
 last line is the device record.
 ``--profile FILE`` adds ``torch.profiler`` tables of PROFILE_BATCHES
@@ -130,8 +154,11 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -140,6 +167,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.checkpoint import AsyncCheckpointer  # noqa: E402
+from repro_torch.checkpoint import restore as ckpt_restore  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.donn import HYBRID_SLM_PRINTED  # noqa: E402
 from repro_torch.core import codesign, dse, dsl  # noqa: E402
@@ -164,8 +193,17 @@ from repro_torch.models.layers import (  # noqa: E402
     apply_norm, apply_rotary, embed_tokens, rope_angles,
 )
 from repro_torch.optim import AdamW  # noqa: E402
+from repro_torch.runtime.fleet import FleetRouter  # noqa: E402
 from repro_torch.runtime.inference import (  # noqa: E402
-    InferenceEngine, MicroBatcher, freeze,
+    InferenceEngine, MicroBatcher, expected_request_shape, freeze,
+)
+from repro_torch.runtime.resilience import (  # noqa: E402
+    ARTIFACT_FILE, PLANES_DIR, DrainingError, EngineSupervisor,
+    load_deployed, save_deployed, validate_artifact,
+)
+from repro_torch.testing import (  # noqa: E402
+    CrashingEngine, corrupt_chunk, flip_crc, kill_replica, perturb_frozen,
+    poison_batches,
 )
 from repro_torch.tree import (  # noqa: E402
     tree_leaves, tree_map, tree_unflatten,
@@ -1280,11 +1318,21 @@ def phase_train(dev, smi: str, profile) -> dict:
 
 
 def phase_cli() -> None:
-    rps = serve_donn.main(["--n", "200", "--depth", "5", "--distance",
-                           "0.30", "--det-size", "20", "--use-pallas",
-                           "--requests", "64", "--device", "cuda"])
+    width = ["--n", "200", "--depth", "5", "--distance", "0.30",
+             "--det-size", "20", "--use-pallas", "--device", "cuda"]
+    rps = serve_donn.main(width + ["--requests", "64"])
     if not rps > 0:
         raise AssertionError("serve_donn served nothing")
+    # the artifact flow at the same width: save, then cold-start a fleet
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        art = os.path.join(tmp, "artifact")
+        rps = [serve_donn.main(width + ["--requests", "64",
+                                        "--save-artifact", art])]
+        rps.append(serve_donn.main(["--artifact", art, "--replicas", "2",
+                                    "--requests", "256", "--device",
+                                    "cuda"]))
+    if not min(rps) > 0:
+        raise AssertionError("serve_donn --artifact served nothing")
 
 
 # --------------------------------------------------------------------------
@@ -2411,6 +2459,496 @@ def phase_lm(dev, smi: str, profile) -> dict:
     return windows
 
 
+# --------------------------------------------------------------------------
+# persistence: artifacts, the JAX-written fixture, corruption, supervision,
+# the fleet, training rollback, frozen-plane faults
+# --------------------------------------------------------------------------
+JAX_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "jax_artifact_n64")
+FIXTURE_RTOL = 1e-4  # the card vs the JAX outputs committed with the fixture
+FLEET_CONCURRENCY = 128  # requests in flight in each closed-loop row
+FLEET_REPLICAS = (1, 2, 4)
+ROBUST_SIGMAS = (0.1, 0.5, 1.0)
+ROBUST_N = 128  # eval inputs a phase sigma
+_EXPECTED = dict.fromkeys(ops.KERNELS, 0)  # launches the engines below owe
+_EXPECTED_LOCK = threading.Lock()
+
+
+def serve_launches(dep) -> dict:
+    """Kernel launches of one frozen forward of ``dep`` on the card:
+    ``family_launches``'s serving batch (K1 2L, K2 once, K3 once but none
+    for segmentation), with ``rfft_first``'s layer 0 moved from two K1 to
+    one more K2."""
+    per = dict(family_launches(dep.cfg.depth,
+                               readout=dep.family != "seg")["serve"])
+    if dep.rfft_first:
+        per["conj_phase_scale"] -= 2
+        per["phase_tf_apply"] += 1
+    return per
+
+
+class _CountedEngine(InferenceEngine):
+    """An ``InferenceEngine`` on its deployment's device that adds what each
+    forward on the card owes the launch counters to ``_EXPECTED`` (warmups
+    included); nothing else refers to it, so a dropped engine is freed."""
+
+    def __init__(self, deployed, buckets):
+        super().__init__(deployed, buckets=buckets, device=deployed.device)
+
+    def _run(self, xp):
+        if self.device.type == "cuda":
+            with _EXPECTED_LOCK:
+                for k, v in serve_launches(self.deployed).items():
+                    _EXPECTED[k] += v
+        return super()._run(xp)
+
+
+def _counted_factory(buckets, wrap=None):
+    def make(dep):
+        eng = _CountedEngine(dep, buckets)
+        return eng if wrap is None else wrap(eng)
+    return make
+
+
+def _dep_bytes(dep) -> int:
+    """Bytes of one deployment's own tensors (planes, source, masks)."""
+    ts = list(tree_leaves(dep.frozen)) + [dep.source]
+    if dep.detector is not None:
+        ts.append(dep.detector.masks_t)
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _request_batch(dep, b: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).random(
+        (b,) + expected_request_shape(dep), np.float32)
+
+
+def _persist_round_trip(dev, smi: str, tmp: str, deps: dict) -> None:
+    """Each deployment saved, cold-started on the card (no device given)
+    and on the CPU: bitwise equal to the in-memory deployment at buckets 1,
+    8 and 32, within SLICE_RTOL of the CPU copy."""
+    for name, dep in deps.items():
+        path = os.path.join(tmp, f"rt-{name}")
+        t0 = time.perf_counter()
+        save_deployed(dep, path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = load_deployed(path)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if loaded.device != dev or loaded.plane_dtype != dep.plane_dtype:
+            raise AssertionError(f"{name}: loaded on {loaded.device} as "
+                                 f"{loaded.plane_dtype}")
+        t0 = time.perf_counter()
+        eng = _CountedEngine(loaded, buckets=(1, 8, 32))
+        eng.warmup()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        x1 = _request_batch(dep, 1, 11)
+        t0 = time.perf_counter()
+        first = eng.infer(x1)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        mem = _CountedEngine(dep, buckets=(1, 8, 32))
+        for b in (1, 8, 32):
+            xb = x1 if b == 1 else _request_batch(dep, b, 11 + b)
+            got = first if b == 1 else eng.infer(xb)
+            want = mem.infer(xb)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{name}: loaded output differs from "
+                                     f"the in-memory deployment at bucket {b}")
+        x8 = _request_batch(dep, 8, 19)
+        cpu = load_deployed(path, device="cpu").forward(
+            torch.from_numpy(x8)).numpy()
+        _hold_out(f"{name}: loaded on the card", eng.infer(x8), cpu,
+                  dep.family != "seg", tag="persistence")
+        print(f"[persistence] {name}: bitwise equal to the in-memory "
+              f"deployment at buckets 1, 8, 32; save {save_ms:.2f} ms, "
+              f"load_deployed {load_ms:.2f} ms, warmup of 3 buckets "
+              f"{warm_ms:.2f} ms, first request {first_ms:.3f} ms ({smi})")
+
+
+def _persist_jax_fixture(dev) -> None:
+    """The committed JAX-written artifacts served on the card."""
+    x = np.load(os.path.join(JAX_FIXTURE, "x.npy"))
+    for variant in ("f32", "bf16", "int8"):
+        path = os.path.join(JAX_FIXTURE, variant)
+        meta = validate_artifact(path)
+        dep = load_deployed(path)
+        if dep.device != dev or not dep.cfg.use_pallas:
+            raise AssertionError(f"fixture {variant}: {dep.device}")
+        got = _CountedEngine(dep, buckets=(8,)).infer(x)
+        want = np.load(os.path.join(JAX_FIXTURE, f"jax_out_{variant}.npy"))
+        rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+        same = bool(np.array_equal(got.argmax(-1), want.argmax(-1)))
+        print(f"[persistence] JAX-written fixture {variant} (format "
+              f"{meta['format']}, {dep.plane_dtype} planes, n={dep.cfg.n}, "
+              f"depth {dep.cfg.depth}) on the card: rel err vs the JAX "
+              f"outputs {rel:.3e} (tol {FIXTURE_RTOL:g}), argmax equal {same}")
+        if rel > FIXTURE_RTOL or not same or got.shape != want.shape:
+            raise AssertionError(f"fixture {variant}: card and JAX disagree")
+
+
+def _persist_corruption(tmp: str, good: str) -> None:
+    """A flipped payload byte and a falsified crc are refused at load with
+    IOError; an unknown format is refused by validate_artifact."""
+    for fault, inject in (("corrupt_chunk", corrupt_chunk),
+                          ("flip_crc", flip_crc)):
+        bad = os.path.join(tmp, f"bad-{fault}")
+        shutil.copytree(good, bad)
+        inject(os.path.join(bad, PLANES_DIR), 0)
+        try:
+            load_deployed(bad)
+        except IOError as e:
+            print(f"[persistence] {fault}: refused at load ({e})")
+        else:
+            raise AssertionError(f"{fault}: a damaged artifact loaded")
+    bad = os.path.join(tmp, "bad-format")
+    shutil.copytree(good, bad)
+    meta_path = os.path.join(bad, ARTIFACT_FILE)
+    with open(meta_path) as f:
+        meta = json.load(f)
+    meta["format"] = 99
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    try:
+        validate_artifact(bad)
+    except ValueError as e:
+        print(f"[persistence] unknown format: refused by validate_artifact "
+              f"({e})")
+    else:
+        raise AssertionError("validate_artifact took format 99")
+
+
+def _persist_supervisor(dev, smi: str, art: str, dep) -> None:
+    """EngineSupervisor over a CrashingEngine: 5 kill/restart cycles, each
+    restart's output bitwise equal to the one before it, and the memory
+    after the 5th restart within one deployment's bytes of the 1st's."""
+    x = _request_batch(dep, 32, 23)
+    sup = EngineSupervisor(
+        art, engine_factory=_counted_factory(
+            (32,), lambda e: CrashingEngine(e, crash_after=1 << 30)),
+        max_restarts=5, backoff_base_ms=0.0).start()
+    before = sup.infer(x)
+    restart_ms, mems = [], []
+    for cycle in range(5):
+        sup.engine.kill()
+        t0 = time.perf_counter()
+        out = sup.infer(x)
+        restart_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(out, before):
+            raise AssertionError(f"restart {cycle + 1}: output changed")
+        torch.cuda.synchronize()
+        mems.append(torch.cuda.memory_allocated(dev))
+    s = sup.stats()
+    if s["restarts"] != 5 or not s["ready"]:
+        raise AssertionError(f"supervisor: {s}")
+    grew = mems[-1] - mems[0]
+    budget = _dep_bytes(dep)
+    print(f"[persistence] supervisor: 5 kill/restart cycles, failed request "
+          f"served again in {', '.join(f'{v:.2f}' for v in restart_ms)} ms "
+          f"(rebuild {', '.join(str(h['rebuild_s']) for h in s['restart_history'])}"
+          f" s), outputs bitwise equal across restarts; "
+          f"memory_allocated after restart 1 {mems[0]} B, after restart 5 "
+          f"{mems[-1]} B (grew {grew} B; one deployment {budget} B) ({smi})")
+    if grew > budget:
+        raise AssertionError("device memory grew across restarts")
+
+
+def _closed_loop(submit, xs, window_s: float) -> dict:
+    """FLEET_CONCURRENCY requests kept in flight for ``window_s`` by one
+    submitting thread; req/s and per-request p50/p99 (submit to
+    result)."""
+    sem = threading.Semaphore(FLEET_CONCURRENCY)
+    lat, errors = [], []
+
+    def done(fut, t0):
+        t = time.perf_counter() - t0
+        exc = fut.exception()
+        if exc is None:
+            lat.append(t)
+        else:
+            errors.append(exc)
+        sem.release()
+
+    n = 0
+    t_start = time.perf_counter()
+    t_end = t_start + window_s
+    while time.perf_counter() < t_end:
+        sem.acquire()
+        t0 = time.perf_counter()
+        submit(xs[n % len(xs)]).add_done_callback(
+            lambda f, t0=t0: done(f, t0))
+        n += 1
+    for _ in range(FLEET_CONCURRENCY):
+        sem.acquire()
+    elapsed = time.perf_counter() - t_start
+    if errors or len(lat) != n:
+        raise AssertionError(f"closed loop: {len(errors)} failed, "
+                             f"{n - len(lat)} not served: {errors[:1]}")
+    lat_ms = np.asarray(lat) * 1e3
+    return dict(requests=n, req_s=n / elapsed,
+                p50_ms=float(np.percentile(lat_ms, 50)),
+                p99_ms=float(np.percentile(lat_ms, 99)))
+
+
+def _served_batches(srv) -> tuple:
+    """(requests, batches) the engines behind a MicroBatcher or a fleet
+    have served so far."""
+    engines = ([srv.engine] if isinstance(srv, MicroBatcher) else
+               [rep.engine.engine for rep in srv.replicas])
+    return (sum(e.stats["requests"] for e in engines),
+            sum(e.stats["batches"] for e in engines))
+
+
+def _persist_fleet(dev, smi: str, art0: str, art1: str, dep0, dep1) -> dict:
+    """Replicas on one card: closed-loop req/s and p50/p99 at 1, 2 and 4
+    replicas beside MicroBatcher on one engine, with each row's mean batch
+    fill (``scripts/fleet_threads.py`` takes the router away: engines in
+    threads against engines in processes); a replica killed mid-run and a
+    rolling swap under load, each with zero drops and bitwise outputs."""
+    xs = _request_batch(dep0, 256, 29)
+    ref_eng = _CountedEngine(dep0, buckets=(32,))
+    ref0 = ref_eng.infer(xs)
+    one = _CountedEngine(dep0, buckets=(32,))
+    one.warmup()
+    servers = [("MicroBatcher, 1 engine", MicroBatcher(one, max_wait_ms=2.0,
+                                                       max_queue=None))]
+    for r in FLEET_REPLICAS:
+        servers.append((f"FleetRouter, {r} replica{'s' if r > 1 else ''}",
+                        FleetRouter.from_artifact(
+                            art0, replicas=r, buckets=(32,), max_queue=None,
+                            engine_factory=_counted_factory((32,)))))
+
+    perf = {label: [] for label, _ in servers}
+    try:
+        for rep in range(REPEATS):
+            for label, srv in servers:
+                _closed_loop(srv.submit, xs, 0.3)  # warm the loop
+                n0, b0 = _served_batches(srv)
+                r = _closed_loop(srv.submit, xs, WINDOW_S)
+                n1, b1 = _served_batches(srv)
+                r["fill"] = (n1 - n0) / max(b1 - b0, 1)
+                perf[label].append(r)
+                print(f"[persistence] {label} (repeat {rep + 1}/{REPEATS}):"
+                      f" {r['req_s']:.1f} req/s, bucket 32, mean batch fill "
+                      f"{r['fill']:.1f}, {r['requests']} requests, p50 "
+                      f"{r['p50_ms']:.3f} ms p99 {r['p99_ms']:.3f} ms ({smi})")
+    finally:
+        for _, srv in servers:
+            if not srv.close():
+                raise AssertionError("a fleet row did not close cleanly")
+    for label, reps in perf.items():
+        rps = [r["req_s"] for r in reps]
+        print(f"[persistence] {label}: req/s {min(rps):.1f}-{max(rps):.1f} "
+              f"across {REPEATS} repeats")
+
+    # a replica killed mid-run: zero drops, outputs bitwise the reference's
+    engines = [_CountedEngine(dep0, buckets=(32,)) for _ in range(2)]
+    for e in engines:
+        e.warmup()
+    router = FleetRouter([CrashingEngine(e, crash_after=1 << 30)
+                          for e in engines], seed=0, backoff_base_ms=1.0)
+    try:
+        futs = [router.submit(x) for x in xs[:128]]
+        kill_replica(router)
+        futs += [router.submit(x) for x in xs[128:]]
+        outs = np.stack([f.result(timeout=120) for f in futs])
+    finally:
+        clean = router.close()
+    s = router.stats()
+    print(f"[persistence] kill_replica mid-run: served {s['served']}/"
+          f"{len(xs)}, failed {s['failed']}, replica failures "
+          f"{s['replica_failures']}, retried {s['retried']}, "
+          f"clean close {clean}")
+    if not clean or s["failed"] or s["served"] != len(xs):
+        raise AssertionError("kill_replica: requests dropped")
+    if not np.array_equal(outs, ref0):
+        raise AssertionError("kill_replica: outputs differ from the "
+                             "reference engine's")
+
+    # a rolling swap under load: zero drops, no DrainingError, every output
+    # one of the two models'
+    ref1 = _CountedEngine(dep1, buckets=(32,)).infer(xs[:1])[0]
+    router = FleetRouter.from_artifact(
+        art0, replicas=2, buckets=(32,), max_queue=None,
+        engine_factory=_counted_factory((32,)))
+    stop = threading.Event()
+    live, errs = [], []
+
+    def pump():
+        while not stop.is_set():
+            try:
+                live.append(router.submit(xs[0]))
+            except DrainingError:
+                errs.append("draining")
+            time.sleep(0.0005)
+
+    try:
+        t = threading.Thread(target=pump, daemon=True)
+        t.start()
+        time.sleep(0.2)
+        t0 = time.perf_counter()
+        meta = router.swap_artifact(art1, rolling=True)
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.2)
+        stop.set()
+        t.join(timeout=30)
+        outs = [f.result(timeout=120) for f in live]
+        after = router.submit(xs[0]).result(timeout=120)
+    finally:
+        clean = router.close()
+    n0 = sum(np.array_equal(o, ref0[0]) for o in outs)
+    n1 = sum(np.array_equal(o, ref1) for o in outs)
+    s = router.stats()
+    print(f"[persistence] rolling swap_artifact under load: {len(outs)} "
+          f"requests ({n0} old model, {n1} new), DrainingError "
+          f"{len(errs)}, failed {s['failed']}, swap {swap_ms:.1f} ms, "
+          f"format {meta['format']}, clean close {clean} ({smi})")
+    if (errs or s["failed"] or n0 + n1 != len(outs) or not n0 or not n1
+            or not np.array_equal(after, ref1) or not clean):
+        raise AssertionError("rolling swap dropped or tore a request")
+    return perf
+
+
+def _persist_rollback(dev, smi: str, tmp: str, cfg, params) -> dict:
+    """train_classifier with ckpt_dir and guard over a fully poisoned
+    chunk: one rollback, and every loss after it bitwise a clean run's;
+    then an AsyncCheckpointer save of params and AdamW state, timed."""
+    model = build_model(cfg, device=dev)
+    xs, ys = synth_digits(512, seed=5)
+    poison = range(CHUNK, 2 * CHUNK)
+
+    def stream(skip=()):
+        it = batch_iterator(xs, ys, 32, seed=1)
+        return (b for i, b in enumerate(it) if i not in set(skip))
+
+    steps = 3 * CHUNK
+    res = train_classifier(model, params, poison_batches(stream(), poison),
+                           steps=steps, lr=0.3, steps_per_call=CHUNK,
+                           guard=True, ckpt_dir=os.path.join(tmp, "train"),
+                           ckpt_every=CHUNK)
+    clean = train_classifier(model, params, stream(skip=poison),
+                             steps=2 * CHUNK, lr=0.3, steps_per_call=CHUNK)
+    print(f"[persistence] rollback: {res.rollbacks} rollback(s), "
+          f"{len(res.losses)} losses kept; clean run's losses "
+          f"{clean.losses[0]:.6f} .. {clean.losses[-1]:.6f}")
+    if res.rollbacks != 1 or res.losses != clean.losses:
+        raise AssertionError("rollback: losses differ from the clean run's")
+    for a, b in zip(tree_leaves(res.params), tree_leaves(clean.params)):
+        if not torch.equal(a, b):
+            raise AssertionError("rollback: params differ from the clean "
+                                 "run's")
+    opt = AdamW(lr=0.3)
+    state = {"params": res.params, "opt": opt.init(res.params)}
+    saver = AsyncCheckpointer(os.path.join(tmp, "async"), keep=2)
+    snap_ms, commit_ms = [], []
+    for i in range(5):
+        t0 = time.perf_counter()
+        saver.save(i, state)
+        snap_ms.append((time.perf_counter() - t0) * 1e3)
+        saver.wait()
+        commit_ms.append((time.perf_counter() - t0) * 1e3)
+    back = ckpt_restore(os.path.join(tmp, "async"), 4, state)
+    for a, b in zip(tree_leaves(back), tree_leaves(state)):
+        if a.device != b.device or not torch.equal(a, b):
+            raise AssertionError("AsyncCheckpointer: restore differs")
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    print(f"[persistence] AsyncCheckpointer.save of params + AdamW state "
+          f"({nbytes} B): returns in {float(np.median(snap_ms)):.3f} ms "
+          f"(median of 5; host snapshot), committed in "
+          f"{float(np.median(commit_ms)):.3f} ms ({smi})")
+    per = train_launches_per_step(cfg.depth)["scan"]
+    with _EXPECTED_LOCK:
+        for k, v in per.items():
+            _EXPECTED[k] += v * (steps + 2 * CHUNK)
+    return clean.params
+
+
+def _persist_robustness(dev, tmp: str, cfg, params) -> None:
+    """perturb_frozen: all faults zero is the identity; accuracy at phase
+    sigma 0.1, 0.5, 1.0 on the card and on a CPU copy of the same
+    artifact (equal correct counts)."""
+    model = build_model(cfg, device=dev)
+    path = os.path.join(tmp, "robust")
+    save_deployed(freeze(model, params, device=dev), path)
+    dep, cpu = load_deployed(path), load_deployed(path, device="cpu")
+    same = perturb_frozen(dep)
+    if any(a is not b for a, b in zip(same.frozen, dep.frozen)):
+        raise AssertionError("perturb_frozen with no fault copied a plane")
+    xs, ys = synth_digits(ROBUST_N, seed=9)
+    base = _CountedEngine(dep, buckets=(32,)).infer(xs)
+    if not np.array_equal(_CountedEngine(same, buckets=(32,)).infer(xs),
+                          base):
+        raise AssertionError("perturb_frozen with no fault changed outputs")
+    row = [f"clean {int(np.sum(base.argmax(-1) == ys))}/{ROBUST_N}"]
+    for sigma in ROBUST_SIGMAS:
+        got = _CountedEngine(perturb_frozen(dep, phase_sigma=sigma, seed=0),
+                             buckets=(32,)).infer(xs)
+        want = perturb_frozen(cpu, phase_sigma=sigma, seed=0).forward(
+            torch.from_numpy(xs)).numpy()
+        c_card = int(np.sum(got.argmax(-1) == ys))
+        c_cpu = int(np.sum(want.argmax(-1) == ys))
+        row.append(f"sigma {sigma}: card {c_card}/{ROBUST_N}, CPU "
+                   f"{c_cpu}/{ROBUST_N}")
+        if c_card != c_cpu:
+            raise AssertionError(f"sigma {sigma}: card and CPU accuracies "
+                                 "differ")
+    print(f"[persistence] perturb_frozen: no fault is the identity; "
+          f"donn-mnist-5l accuracy {'; '.join(row)}")
+
+
+def phase_persistence(dev, smi: str) -> dict:
+    """Artifacts, supervision, the fleet and rollback on the card; returns
+    the phase's launches, held against what its engines and training steps
+    owe."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("donn-mnist-5l"), use_pallas=True)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator().manual_seed(0))
+    cfg = dataclasses.replace(cfg, gamma=calibrate_gamma(
+        model, params, synth_digits(8, seed=3)[0]))
+    model = build_model(cfg, device=dev)
+    rgb_cfg = dataclasses.replace(get_config("donn-rgb"), use_pallas=True)
+    seg_cfg = dataclasses.replace(get_config("donn-seg"), use_pallas=True)
+    het_cfg = dataclasses.replace(HYBRID_SLM_PRINTED, use_pallas=True)
+    deps = {f"donn-mnist-5l {v}{'+rfft' if r else ''}": freeze(
+        model, params, plane_dtype=v, rfft_first=r, device=dev)
+        for v, r in (("float32", False), ("bfloat16", False),
+                     ("int8", False), ("float32", True))}
+    for name, c, seed in (("donn-rgb", rgb_cfg, 4), ("donn-seg", seg_cfg, 5),
+                          ("hybrid-slm-printed", het_cfg, 6)):
+        m = build_model(c, device=dev)
+        deps[name] = freeze(m, m.init(torch.Generator().manual_seed(seed)),
+                            device=dev)
+    params1 = model.init(torch.Generator().manual_seed(1))
+    dep0, dep1 = deps["donn-mnist-5l float32"], freeze(model, params1,
+                                                       device=dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_persist_") as tmp:
+        art0, art1 = os.path.join(tmp, "art0"), os.path.join(tmp, "art1")
+        save_deployed(dep0, art0)
+        save_deployed(dep1, art1)
+        for k in _EXPECTED:
+            _EXPECTED[k] = 0
+        out = {}
+
+        def run():
+            _persist_round_trip(dev, smi, tmp, deps)
+            _persist_jax_fixture(dev)
+            _persist_corruption(tmp, art0)
+            _persist_supervisor(dev, smi, art0, dep0)
+            _persist_fleet(dev, smi, art0, art1, dep0, dep1)
+            out["trained"] = _persist_rollback(dev, smi, tmp, cfg, params)
+            _persist_robustness(dev, tmp, cfg, out["trained"])
+
+        launches = _counted(run)
+    want = dict(_EXPECTED)
+    print(f"[persistence] launches {launches} (expected {want}); phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    if launches != want or not all(launches[k] for k in SERVING_KERNELS):
+        raise AssertionError("persistence: the kernels did not run as "
+                             "counted")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="FILE", default=None,
@@ -2433,6 +2971,7 @@ def main(argv=None) -> int:
     families = phase_families(dev, smi, args.profile)
     design = phase_design(dev, smi, args.profile)
     lm_windows = phase_lm(dev, smi, args.profile)
+    persistence = phase_persistence(dev, smi)
     kernels = []
     for name in ops.KERNELS:
         r = rows[name]
@@ -2442,13 +2981,14 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             # the main path: DONN serving and training, the advanced
-            # families, the design flow, LM serving; the LM holds (K6 on
-            # q/k, K7 on the mixer tensors) apart
+            # families, the design flow, LM serving, persistence and the
+            # fleet; the LM holds (K6 on q/k, K7 on the mixer tensors) apart
             "launches": (launches[name] + train["counted"][name]
                          + sum(f[name] for f in families.values())
                          + sum(d[name] for d in design.values())
                          + sum(v for w, v in lm_launches.items()
-                               if w.startswith("lm_serve"))),
+                               if w.startswith("lm_serve"))
+                         + persistence[name]),
             "hold_launches": sum(v for w, v in lm_launches.items()
                                  if w.startswith("lm_hold")),
             "serve_launches": launches[name],
@@ -2457,6 +2997,7 @@ def main(argv=None) -> int:
             "family_launches": {f: c[name] for f, c in families.items()},
             "design_launches": {d: c[name] for d, c in design.items()},
             "lm_launches": lm_launches,
+            "persistence_launches": persistence[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -29,8 +29,10 @@ The reference routes its steps through a process-wide executable cache
 eager PyTorch compiles nothing, so the port has no counterpart.  Nor does
 it donate buffers (the reference's ``donate``): updates return new
 tensors and never write the caller's.  Checkpoint rollback (``ckpt_dir``,
-``ckpt_every``, ``max_rollbacks``) comes with the persistence slice.  The
-segmentation DONN trains through a step written by hand on
+``ckpt_every``, ``max_rollbacks``) saves (params, opt_state, rng, step)
+through ``repro_torch.checkpoint``; the rng is a ``torch.Generator``, so
+its checkpointed state is ``rng.get_state()`` and a rollback calls
+``set_state``.  The segmentation DONN trains through a step written by hand on
 ``bce_segmentation_loss``, as the reference's example does.
 """
 from __future__ import annotations
@@ -97,6 +99,7 @@ class TrainResult:
     accs: list
     wall_time_s: float
     skipped_steps: int = 0  # guarded steps dropped for non-finite loss/grads
+    rollbacks: int = 0  # checkpoint restores after a diverged chunk
 
 
 def _batch(model, xb, yb):
@@ -223,6 +226,8 @@ def train_classifier(
     prefetch: int = 2,
     guard: bool = False,
     ckpt_dir=None,
+    ckpt_every: int = 0,
+    max_rollbacks: int = 2,
 ) -> TrainResult:
     """Compact Adam training loop for DONN classifiers (paper: Adam + MSE).
 
@@ -234,13 +239,16 @@ def train_classifier(
     codesign noise from ``rng`` (a ``torch.Generator`` on the model's
     device; seed 0 there when not given).  ``guard=True`` (chunked path
     only) skips non-finite steps as exact no-ops, counted in
-    ``TrainResult.skipped_steps``.
+    ``TrainResult.skipped_steps``.  With ``ckpt_dir`` set, (params,
+    opt_state, the generator's state, step) checkpoint through
+    ``repro_torch.checkpoint`` every ``ckpt_every`` steps (plus once at
+    step 0), and a guarded chunk that comes back fully skipped or with
+    non-finite params **rolls back** to the last good checkpoint and goes
+    on with the next chunk — at most ``max_rollbacks`` times (counted in
+    ``TrainResult.rollbacks``); beyond that a ``RuntimeError`` surfaces
+    the divergence.  A restore is bit-exact, so the steps after a rollback
+    lose exactly what a run without the bad chunk's batches would.
     """
-    if ckpt_dir is not None:
-        raise NotImplementedError(
-            "checkpoint rollback (ckpt_dir) comes with the persistence slice "
-            "(checkpoint/store.py)"
-        )
     optimizer = AdamW(lr=lr)
     opt_state = optimizer.init(params)
     if needs_rng and rng is None:
@@ -272,16 +280,48 @@ def train_classifier(
     chunks = stack_batches(data_iter, steps_per_call, total=steps)
     if prefetch:
         chunks = device_prefetch(chunks, size=prefetch, device=model.device)
-    skipped_total = 0
+    skipped_total, rollbacks = 0, 0
+    last_good: Optional[int] = None
     # i indexes the data stream / metric lists; opt_step is the optimizer's
     # bias-correction counter — they diverge when guarded steps are skipped
     i, opt_step = 0, 0
+    if ckpt_dir is not None:
+        from repro_torch import checkpoint as ckpt
+
+        def _ckpt_state():
+            state = {"params": params, "opt": opt_state,
+                     "opt_step": torch.tensor(opt_step, dtype=torch.int32)}
+            if rng is not None:
+                state["rng"] = rng.get_state()
+            return state
+
+        # a rollback target must exist before the first chunk can fail
+        ckpt.save(ckpt_dir, 0, _ckpt_state(), keep=3)
+        last_good = 0
     for xs, ys in chunks:
         out = chunk_fn(params, opt_state, opt_step, xs, ys, rng)
         n = int(xs.shape[0])
         if guard:
-            params, opt_state, closs, cacc, skipped, _ = out
-            n_skip = int(skipped.sum())  # the chunk's sync
+            params, opt_state, closs, cacc, skipped, params_ok = out
+            skipped = skipped.cpu()  # the chunk's sync
+            bad_chunk = (not bool(params_ok)) or bool(skipped.all())
+            if bad_chunk and last_good is not None:
+                if rollbacks >= max_rollbacks:
+                    raise RuntimeError(
+                        f"training diverged at step {i} and the rollback "
+                        f"budget ({max_rollbacks}) is exhausted"
+                    )
+                state = ckpt.restore(ckpt_dir, last_good, _ckpt_state(),
+                                     device=model.device)
+                params, opt_state = state["params"], state["opt"]
+                if rng is not None:
+                    rng.set_state(state["rng"].cpu())
+                opt_step = int(state["opt_step"])
+                del losses[last_good:], accs[last_good:]  # rolled back
+                i = last_good
+                rollbacks += 1
+                continue
+            n_skip = int(skipped.sum())
             skipped_total += n_skip
             opt_step += n - n_skip
         else:
@@ -297,8 +337,12 @@ def train_classifier(
                     print(f"step {i + j:4d}  loss {closs[j]:.4f}  "
                           f"acc {cacc[j]:.3f}")
         i += n
+        if (last_good is not None and ckpt_every
+                and i - last_good >= ckpt_every):
+            ckpt.save(ckpt_dir, i, _ckpt_state(), keep=3)
+            last_good = i
     return TrainResult(params, losses, accs, time.perf_counter() - t0,
-                       skipped_steps=skipped_total)
+                       skipped_steps=skipped_total, rollbacks=rollbacks)
 
 
 @torch.no_grad()

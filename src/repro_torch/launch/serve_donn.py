@@ -12,19 +12,33 @@ images, (3, n, n) for rgb — through the micro-batching dispatcher and
 reports requests/sec plus latency percentiles, and the shed/expired
 counts when the resilience knobs engage.
 
-The flags are the reference's.  Artifacts (``--artifact``/
-``--save-artifact``), multi-device dispatch and the replica fleet come
-with later slices and raise ``NotImplementedError``.  ``--device``
-defaults to the CUDA card.
+Artifact flow (``repro_torch.runtime.resilience``): ``--save-artifact
+DIR`` persists the frozen deployment after freezing; ``--artifact DIR``
+cold-starts serving from a saved artifact (the port's or the JAX
+package's) with no model build, training or freezing.  The artifact's
+format and architecture spec are validated before anything is loaded or
+warmed: a bad artifact exits with code 2.  ``--replicas N`` serves
+through the continuous-batching ``FleetRouter`` (``runtime.fleet``) over
+N engines on the one device instead of the single-engine ``MicroBatcher``
+(on one card the replicas share one interpreter lock and serve fewer
+requests a second than one engine: for failover and warm swap, not
+throughput).
 
-Example:
+The flags are the reference's; multi-device dispatch (``--mesh-devices``
+above 1) comes with a later slice and raises ``NotImplementedError``.
+``--device`` defaults to the CUDA card.
+
+Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve_donn --n 200 --depth 5 \
       --distance 0.30 --det-size 20 --use-pallas --train-steps 16 \
-      --requests 256
+      --requests 256 --save-artifact /path/to/artifact
+  PYTHONPATH=src python -m repro_torch.launch.serve_donn \
+      --artifact /path/to/artifact --replicas 2 --requests 256
 """
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -42,6 +56,9 @@ from repro_torch.runtime.inference import (
 from repro_torch.runtime.resilience import (
     DeadlineExceededError,
     OverloadedError,
+    load_deployed,
+    save_deployed,
+    validate_artifact,
 )
 
 
@@ -60,17 +77,10 @@ def build_cfg(args) -> DONNConfig:
 
 
 def _refuse_later_slices(args) -> None:
-    later = [
-        (args.artifact is not None, "--artifact", "persistence"),
-        (args.save_artifact is not None, "--save-artifact", "persistence"),
-        (args.mesh_devices > 1, "--mesh-devices", "multi-device"),
-        (args.replicas > 0, "--replicas", "fleet"),
-    ]
-    for hit, flag, slice_name in later:
-        if hit:
-            raise NotImplementedError(
-                f"{flag} comes with the {slice_name} slice of the port"
-            )
+    if args.mesh_devices > 1:
+        raise NotImplementedError(
+            "--mesh-devices comes with the multi-device slice of the port"
+        )
 
 
 def main(argv=None):
@@ -100,46 +110,80 @@ def main(argv=None):
     ap.add_argument("--no-validate", action="store_true",
                     help="skip submit-time shape/dtype validation")
     ap.add_argument("--artifact", default=None,
-                    help="serve from a saved artifact dir (persistence slice)")
+                    help="serve from a saved artifact dir (skips build/"
+                         "train/freeze entirely)")
     ap.add_argument("--save-artifact", default=None,
-                    help="persist the frozen deployment (persistence slice)")
+                    help="persist the frozen deployment to this dir")
     ap.add_argument("--mesh-devices", type=int, default=0,
                     help="data-parallel dispatch over N devices (0 = off)")
     ap.add_argument("--replicas", type=int, default=0,
-                    help="serve through a replica fleet (0 = single "
-                         "MicroBatcher)")
+                    help="serve through a continuous-batching FleetRouter "
+                         "over N replicas (0 = single MicroBatcher)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (the CUDA card unless asked)")
     args = ap.parse_args(argv)
     _refuse_later_slices(args)
+    if args.artifact:
+        # format and architecture spec checked before anything is loaded
+        # or warmed, so a bad artifact exits cleanly instead of mid-deploy
+        try:
+            meta = validate_artifact(args.artifact)
+        except (FileNotFoundError, ValueError) as e:
+            print(f"[serve_donn] ERROR: artifact {args.artifact!r} failed "
+                  f"pre-deploy validation: {e}", file=sys.stderr)
+            sys.exit(2)
     device = resolve_device(args.device)
 
-    cfg = build_cfg(args)
-    model = build_model(cfg, device=device)
-    params = model.init(torch.Generator().manual_seed(args.seed))
-    if args.train_steps > 0 and args.family == "classify":
-        from repro_torch.core.train_utils import train_classifier
-        from repro_torch.data.synthetic import batch_iterator, synth_digits
+    if args.artifact:
+        t0 = time.perf_counter()
+        deployed = load_deployed(args.artifact, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_freeze = time.perf_counter() - t0
+        print(f"[serve_donn] cold-started from {args.artifact} "
+              f"(format {meta['format']}, family {meta['family']!r}) in "
+              f"{t_freeze * 1e3:.0f}ms on {device} (no training state "
+              "touched)")
+        cfg = deployed.cfg
+    else:
+        cfg = build_cfg(args)
+        model = build_model(cfg, device=device)
+        params = model.init(torch.Generator().manual_seed(args.seed))
+        if args.train_steps > 0 and args.family == "classify":
+            from repro_torch.core.train_utils import train_classifier
+            from repro_torch.data.synthetic import (
+                batch_iterator, synth_digits,
+            )
 
-        xs, ys = synth_digits(512, seed=args.seed)
-        res = train_classifier(model, params,
-                               batch_iterator(xs, ys, 32, seed=1),
-                               steps=args.train_steps, lr=0.3,
-                               steps_per_call=8)
-        params = res.params
-        print(f"[serve_donn] trained {args.train_steps} steps "
-              f"({res.wall_time_s:.1f}s, final loss {res.losses[-1]:.4f})")
-    t0 = time.perf_counter()
-    deployed = freeze(model, params, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t_freeze = time.perf_counter() - t0
+            xs, ys = synth_digits(512, seed=args.seed)
+            res = train_classifier(model, params,
+                                   batch_iterator(xs, ys, 32, seed=1),
+                                   steps=args.train_steps, lr=0.3,
+                                   steps_per_call=8)
+            params = res.params
+            print(f"[serve_donn] trained {args.train_steps} steps "
+                  f"({res.wall_time_s:.1f}s, final loss "
+                  f"{res.losses[-1]:.4f})")
+        t0 = time.perf_counter()
+        deployed = freeze(model, params, device=device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_freeze = time.perf_counter() - t0
+    if args.save_artifact:
+        save_deployed(deployed, args.save_artifact)
+        print(f"[serve_donn] saved artifact to {args.save_artifact}")
     buckets = tuple(int(b) for b in args.buckets.split(","))
-    engine = InferenceEngine(deployed, buckets=buckets, device=device)
-    compiles = engine.warmup()
-    print(f"[serve_donn] froze {cfg.name} in {t_freeze * 1e3:.0f}ms; "
-          f"warmed {len(compiles)} buckets in "
+    n_replicas = max(args.replicas, 0)
+    engines = []
+    for _ in range(n_replicas or 1):
+        engine = InferenceEngine(deployed, buckets=buckets, device=device)
+        compiles = engine.warmup()  # every bucket before any traffic
+        engines.append(engine)
+    engine = engines[0]
+    verb = "loaded" if args.artifact else "froze"
+    print(f"[serve_donn] {verb} {cfg.name} in {t_freeze * 1e3:.0f}ms; "
+          f"warmed {len(compiles)} buckets x{len(engines)} replica(s) in "
           f"{sum(compiles.values()):.2f}s on {device}")
 
     rng = np.random.default_rng(args.seed)
@@ -147,9 +191,17 @@ def main(argv=None):
     shape = ((cfg.channels, n, n) if deployed.family == "multi" else (n, n))
     reqs = [rng.random(shape, dtype=np.float32)
             for _ in range(args.requests)]
-    mb = MicroBatcher(engine, max_wait_ms=args.max_wait_ms,
-                      max_queue=args.max_queue or None,
-                      validate=not args.no_validate)
+    if n_replicas:
+        from repro_torch.runtime.fleet import FleetRouter
+
+        mb = FleetRouter(engines, max_queue=args.max_queue or None,
+                         validate=not args.no_validate)
+        print(f"[serve_donn] continuous-batching fleet: "
+              f"{n_replicas} replica(s)")
+    else:
+        mb = MicroBatcher(engine, max_wait_ms=args.max_wait_ms,
+                          max_queue=args.max_queue or None,
+                          validate=not args.no_validate)
     timeout_ms = args.timeout_ms or None
     lat, shed, expired = [], 0, 0
     t0 = time.perf_counter()
@@ -176,9 +228,9 @@ def main(argv=None):
     print(f"[serve_donn] {len(lat)}/{args.requests} requests served in "
           f"{dt:.2f}s ({rps:.1f} req/s; p50 {p50:.1f}ms p99 {p99:.1f}ms; "
           f"shed {shed}, expired {expired}; "
-          f"{engine.stats['batches']} batches, "
-          f"{engine.stats['padded_rows']} padded rows, "
-          f"clean_close={clean})")
+          f"{sum(e.stats['batches'] for e in engines)} batches, "
+          f"{sum(e.stats['padded_rows'] for e in engines)} padded rows, "
+          f"replicas={n_replicas or 1}, clean_close={clean})")
     return rps
 
 

@@ -25,9 +25,13 @@ with the optical skip (``"seg"``), on uniform and heterogeneous
     (``DeadlineExceededError``), submit-time validation and group
     bisection.
 
-Multi-device dispatch (``mesh_devices``/``model_devices`` above 1) and
-serialized artifacts come with later slices and raise
-``NotImplementedError``.
+4.  **Artifacts** — ``runtime.resilience.save_deployed`` /
+    ``load_deployed`` persist a deployment and cold-start it on the card;
+    ``deployed_from_model`` takes the restored planes as they come off
+    disk (moved to the deployment's device, storage dtype kept).
+
+Multi-device dispatch (``mesh_devices``/``model_devices`` above 1) comes
+with the multi-device slice and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from repro_torch.runtime.resilience import (
     DeadlineExceededError,
     OverloadedError,
 )
+from repro_torch.tree import tree_map
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32)
 
@@ -71,7 +76,9 @@ class DeployedDONN:
         self.cfg = cfg
         self.family = family  # "cls" | "multi" | "seg"
         self.plan = plan
-        self.frozen = tuple(frozen)
+        # restored planes arrive from disk: placed here, storage dtype kept
+        self.frozen = tree_map(lambda t: torch.as_tensor(t).to(self.device),
+                               tuple(frozen))
         self.source = torch.as_tensor(source).to(self.device)
         self.in_n = in_n
         self.detector = detector
@@ -141,7 +148,11 @@ class DeployedDONN:
 def deployed_from_model(model, frozen, source=None,
                         rfft_first: bool = False) -> DeployedDONN:
     """Assemble a ``DeployedDONN`` around a built model + ready-made planes
-    (plan, detector, grids and skip wiring from the model)."""
+    (plan, detector, grids and skip wiring from the model).
+
+    ``freeze`` computes the planes from trained params;
+    ``runtime.resilience.load_deployed`` restores them from an artifact
+    (any storage dtype; int8 as 4-tuples) and ``source`` with them."""
     if isinstance(model, md.MultiChannelDONN):
         cm = model.channel_model
         return DeployedDONN(

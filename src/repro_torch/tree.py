@@ -32,6 +32,25 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_paths(tree, prefix: str = "") -> list:
+    """The path of each leaf of ``tree``, in ``tree_leaves`` order, as
+    ``jax.tree_util.keystr`` writes it: a dict key as ``['name']`` (its
+    ``repr`` in brackets), a tuple or list index as ``[0]``, a NamedTuple
+    field as ``.name`` — so an AdamW moment reads
+    ``['opt'].mu['phase']['layer_0']``.  The checkpoint store names its
+    leaves with these, as the reference's does."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in tree_paths(tree[k], f"{prefix}[{k!r}]")]
+    if _is_namedtuple(tree):
+        return [p for f, node in zip(tree._fields, tree)
+                for p in tree_paths(node, f"{prefix}.{f}")]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, node in enumerate(tree)
+                for p in tree_paths(node, f"{prefix}[{i}]")]
+    return [prefix]
+
+
 def tree_unflatten(like, leaves) -> object:
     """A tree of ``like``'s structure holding ``leaves`` in order."""
     it = iter(leaves)

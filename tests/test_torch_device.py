@@ -29,6 +29,12 @@ from repro_torch.tree import tree_map  # noqa: E402
 from repro_torch.runtime.inference import (  # noqa: E402
     InferenceEngine, MicroBatcher, freeze,
 )
+from repro_torch import checkpoint as ckpt  # noqa: E402
+from repro_torch.runtime.fleet import FleetRouter  # noqa: E402
+from repro_torch.runtime.resilience import (  # noqa: E402
+    EngineSupervisor, load_deployed, save_deployed,
+)
+from repro_torch.testing import FlakyEngine, kill_replica  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CFG = DONNConfig(name="dev", n=32, depth=2, distance=0.05, det_size=6,
@@ -51,18 +57,36 @@ def _imports(path: pathlib.Path):
             yield node.lineno, str(node.args[0].value)
 
 
-def test_port_imports_neither_jax_nor_the_reference():
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
-    files.extend(sorted((REPO / "scripts").glob("*.py")))
-    assert len(files) > 15
+# the one script that runs the JAX package: it writes the JAX-side fixture
+# the port is held against (tests/fixtures/jax_artifact_n64); the port, the
+# chip smoke and every other script never import it
+JAX_FIXTURE_WRITER = REPO / "scripts" / "write_jax_artifact_fixture.py"
+
+
+def _jax_imports(files) -> list:
     bad = []
     for f in files:
         for line, mod in _imports(f):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "repro", "flax", "optax"):
+            if top in ("jax", "jaxlib", "repro", "flax", "optax",
+                       "ml_dtypes"):
                 bad.append(f"{f.relative_to(REPO)}:{line} imports {mod}")
+    return bad
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    files.extend(f for f in sorted((REPO / "scripts").glob("*.py"))
+                 if f != JAX_FIXTURE_WRITER)
+    assert len(files) > 15
+    bad = _jax_imports(files)
     assert not bad, "\n".join(bad)
+
+
+def test_the_fixture_writer_is_the_script_that_runs_the_reference():
+    """The exemption above names a script that exists and runs JAX."""
+    assert _jax_imports([JAX_FIXTURE_WRITER])
 
 
 def _entry_points():
@@ -108,6 +132,43 @@ def test_freeze_and_engine_default_to_the_card():
         freeze(model, params)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(dep)
+
+
+def _cpu_artifact(root: pathlib.Path) -> pathlib.Path:
+    model = build_model(CFG, device="cpu")
+    dep = freeze(model, model.init(torch.Generator().manual_seed(0)),
+                 device="cpu")
+    save_deployed(dep, root / "art")
+    ckpt.save(root / "ck", 0, {"w": torch.ones(3)})
+    return root
+
+
+def _persistence_entry_points(root: pathlib.Path):
+    art = root / "art"
+    return {
+        "load_deployed": lambda: load_deployed(art),
+        "restore": lambda: ckpt.restore(root / "ck", 0, {"w": 0.0}),
+        "EngineSupervisor": lambda: EngineSupervisor(art).start(),
+        "FleetRouter.from_artifact": lambda: FleetRouter.from_artifact(
+            art, replicas=1, buckets=(1,)).close(),
+        "serve_donn --artifact": lambda: serve_donn.main(
+            ["--artifact", str(art), "--requests", "4"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["load_deployed", "restore",
+                                  "EngineSupervisor",
+                                  "FleetRouter.from_artifact",
+                                  "serve_donn --artifact"])
+def test_persistence_entry_points_default_to_the_card(tmp_path, name):
+    """Artifacts written on the CPU load onto the card by default; without
+    a card each entry point raises, nothing rebuilds on the CPU."""
+    call = _persistence_entry_points(_cpu_artifact(tmp_path))[name]
+    if torch.cuda.is_available():
+        call()  # runs on the card
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
 
 
 # ------------------------------------------------------------ on the card
@@ -647,3 +708,80 @@ def test_remat_backward_relaunches_exactly_the_forward_kernels(cuda):
     for remat in ("layer", "segment"):
         for g, g0 in zip(grads[remat], grads["none"]):
             assert _rel(g, g0) <= 1e-6, remat
+
+
+def test_load_deployed_lands_on_the_card_and_serves_through_k1_k3(
+        cuda, tmp_path, monkeypatch):
+    """A CPU-written artifact cold-starts on the card with no device given:
+    planes, source and engine there; a batch launches K1 2L, K2 once and
+    K3 once and no plain version; the output equals the CPU's within 1e-4
+    and the in-memory deployment's on the card bit for bit."""
+    model = build_model(CFG, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    x = np.random.default_rng(1).random((4, 28, 28), np.float32)
+    for dtype in ("float32", "bfloat16", "int8"):
+        cpu_dep = freeze(model, params, dtype, device="cpu")
+        save_deployed(cpu_dep, tmp_path / dtype)
+        dep = load_deployed(tmp_path / dtype)
+        assert dep.device == cuda and dep.plane_dtype == dtype
+        assert all(t.is_cuda for t in dep.frozen) and dep.source.is_cuda
+        eng = InferenceEngine(dep, buckets=(4,))
+        with monkeypatch.context() as m:
+            _forbid_plain_versions(m)
+            ops.reset_launch_counts()
+            got = eng.infer(x)
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == {
+                **dict.fromkeys(ops.KERNELS, 0),
+                "conj_phase_scale": 2 * CFG.depth, "phase_tf_apply": 1,
+                "intensity_readout": 1}, dtype
+        want = cpu_dep.forward(torch.from_numpy(x)).numpy()
+        assert np.max(np.abs(got - want)) <= 1e-4 * np.max(np.abs(want))
+        gpu_model = build_model(CFG, device=cuda)
+        gpu_params = tree_map(lambda t: t.to(cuda), params)
+        mem = InferenceEngine(freeze(gpu_model, gpu_params, dtype),
+                              buckets=(4,)).infer(x)
+        np.testing.assert_array_equal(got, mem)
+
+
+def test_fleet_replicas_on_one_card_fail_over_bitwise(cuda, tmp_path):
+    """Two replicas of one deployment on one card: a replica killed
+    mid-run gives zero drops with every output equal to the reference
+    engine's bit for bit (one bucket)."""
+    model = build_model(CFG, device=cuda)
+    dep = freeze(model, model.init(torch.Generator().manual_seed(0)))
+    xs = np.random.default_rng(2).random((64, 28, 28), np.float32)
+    ref_out = InferenceEngine(dep, buckets=(8,)).infer(xs)
+    engines = [InferenceEngine(dep, buckets=(8,)) for _ in range(2)]
+    for e in engines:
+        e.warmup()
+    router = FleetRouter([FlakyEngine(e) for e in engines], seed=0,
+                         backoff_base_ms=1.0)
+    try:
+        futs = [router.submit(x) for x in xs]
+        kill_replica(router)
+        outs = np.stack([f.result(timeout=60) for f in futs])
+    finally:
+        assert router.close()
+    np.testing.assert_array_equal(outs, ref_out)
+    assert router.stats()["failed"] == 0
+
+
+def test_engine_sees_plane_writes_the_caller_queued(cuda):
+    """Plane writes the caller queued behind a long kernel, with no
+    synchronize, are seen by the engine's next batch: the outputs are the
+    new planes'."""
+    model = build_model(CFG, device=cuda)
+    dep = freeze(model, model.init(torch.Generator().manual_seed(0)))
+    new = freeze(model, model.init(torch.Generator().manual_seed(1)))
+    x = np.random.default_rng(3).random((4, 28, 28), np.float32)
+    eng = InferenceEngine(dep, buckets=(4,))
+    old_out = eng.infer(x)
+    want = InferenceEngine(new, buckets=(4,)).infer(x)
+    assert not np.array_equal(old_out, want)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 30)  # holds the default stream for ~0.5 s
+    for t, u in zip(dep.frozen, new.frozen):
+        t.copy_(u)
+    assert not torch.cuda.current_stream(cuda).query()
+    np.testing.assert_array_equal(eng.infer(x), want)

@@ -333,13 +333,16 @@ def test_guarded_nan_step_is_an_exact_noop():
     _assert_trees_equal(res.params, gp)
 
 
-def test_train_classifier_refuses_what_waits():
+def test_train_classifier_refuses_what_waits(tmp_path):
+    """Checkpoint rollback has landed (``ckpt_dir`` trains and saves step
+    0); what stays refused is the guard on the per-step driver."""
     tm, _ = _models(depth=2)
     params = _to_torch(_np_params(2, 32))
     it = tsyn.batch_iterator(*tsyn.synth_digits(8), 4)
-    with pytest.raises(NotImplementedError, match="persistence"):
-        ttu.train_classifier(tm, params, it, steps=2, ckpt_dir="ck",
-                             steps_per_call=2, guard=True)
+    res = ttu.train_classifier(tm, params, it, steps=2,
+                               ckpt_dir=tmp_path / "ck", steps_per_call=2,
+                               guard=True)
+    assert res.rollbacks == 0 and (tmp_path / "ck" / "LATEST").exists()
     with pytest.raises(ValueError, match="chunked"):
         ttu.train_classifier(tm, params, it, steps=2, guard=True)
 

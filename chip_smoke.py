@@ -123,6 +123,28 @@ script exits non-zero without the final line:
    card and the CPU copy, equal).  Its K1-K3 launches are held against
    what its engines' forwards and training steps owe.
 
+11. mesh — the multi-device slice, after every earlier phase: the
+   card's machine has one card and NCCL takes one rank a card, so the
+   k > 1 paths run as k gloo ranks sharing it (``collectives.spawn_ranks``,
+   2 ranks, then 4; collectives staged through the host).  Data parallel
+   with the kernels (``donn-mnist-5l``, bucket 32): ``InferenceEngine(
+   mesh_devices=2|4)`` against the single-rank engine (1e-5, argmax
+   equal, repeats bitwise, every rank the whole logits) and 3 steps of
+   ``compile_donn_train_step`` against the single-device step (losses rtol
+   1e-5, params 2e-3 of the max), each rank's K1-K3 launches held to
+   ``serve_launches`` and ``train_launches_per_step``.  Row-sharded at full
+   width (``donn-xl-500``, n=500, depth 30, no kernels): the sharded loss
+   and d/dphase at meshes (1, 2), (2, 2), (1, 4), 3 sharded steps at (2,
+   2) and the engines at (1, 2), (1, 4), (2, 2) against the single rank;
+   ``donn-rgb`` and ``donn-seg`` at (2, 2) and ``hybrid-slm-printed`` at
+   (1, 2).  NCCL at world size 1 on a (1, 1) mesh: the engine and the
+   data-parallel step bitwise the calls without a process group (with 2+
+   cards the holds repeat over NCCL, one rank a card).  Times (pencil fft2
+   of (32, 500, 500), the xl engine's req/s at k = 1, 2, 4, a sharded
+   step) are labelled as ranks sharing one card: none is a multi-GPU
+   rate.  Every hold is printed; the phase raises after the last if any
+   failed.
+
 Phase 3 also holds K5 complex_mul (32x200x200 x (200, 200); at odd
 37x53, a[1:] and a[1:3] of an odd batch, whose starts are 8 bytes off 16),
 K6 rope (the qwen1.5-4b prefill shape (160, 2048, 128), bf16 and f32) and
@@ -135,7 +157,8 @@ to the bit and its batch row 1 alone equals the row inside its batch.
 
 Then one JSON line lists every kernel with its launches on the main path
 (DONN serving + training, the families, the design flow, LM serving,
-persistence; the last also under ``persistence_launches``) and in the LM
+persistence, the mesh's ranks; the last two also under
+``persistence_launches`` and ``mesh_launches``) and in the LM
 holds apart, its launches per training step on each engine,
 per family, per design part and per LM window, error and times, and the
 last line is the device record.
@@ -192,7 +215,12 @@ from repro_torch.models import lm, ssm  # noqa: E402
 from repro_torch.models.layers import (  # noqa: E402
     apply_norm, apply_rotary, embed_tokens, rope_angles,
 )
+from repro_torch.nn.module import init_params  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
+from repro_torch.runtime import donn_steps as ds  # noqa: E402
+from repro_torch.runtime import pencil_fft  # noqa: E402
+from repro_torch.runtime import sharding as shd  # noqa: E402
+from repro_torch.runtime.collectives import spawn_ranks  # noqa: E402
 from repro_torch.runtime.fleet import FleetRouter  # noqa: E402
 from repro_torch.runtime.inference import (  # noqa: E402
     InferenceEngine, MicroBatcher, expected_request_shape, freeze,
@@ -2949,6 +2977,480 @@ def phase_persistence(dev, smi: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# mesh: multi-device DONN training and serving over ranks
+# --------------------------------------------------------------------------
+MESH_BUCKET = 32  # requests a served batch, and the global training batch
+MESH_STEPS = 3  # optimizer steps of each held training run
+MESH_RTOL = 1e-5  # sharded vs single-rank loss, d/dphase, logits (SUITE2)
+MESH_STEP_RTOL = 2e-3  # params after MESH_STEPS AdamW steps (SUITE2 §2)
+MESH_TIMEOUT_S = 900.0  # join timeout of a spawn of ranks
+MESH_REPS = 3  # host-clock calls of each timed mesh row
+
+
+def _mesh_label(world: int, backend: str) -> str:
+    """What a mesh row ran on, printed beside each of its lines."""
+    if backend == "nccl":
+        return "NCCL ranks, one card each"
+    if torch.cuda.device_count() < world:
+        return "gloo ranks sharing one card, host-staged collectives"
+    return "gloo ranks, one card each, host-staged collectives"
+
+
+def _rel_np(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.isfinite(got).all():
+        return math.inf
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)),
+                                                  1e-30))
+
+
+def _mesh_grads(loss_fn, params, batch):
+    """(loss as a float, grads) of ``loss_fn`` at ``params`` on this rank."""
+    loss, grads = ds.value_and_grad(loss_fn, params, batch)
+    return float(loss), grads
+
+
+def _grad_err(got, want) -> float:
+    return max(_rel_np(got["phase"][k].cpu(), want["phase"][k].cpu())
+               for k in want["phase"])
+
+
+def _mesh_steps(fn, s_ps, b_ps, mesh, state0, batch) -> tuple:
+    """MESH_STEPS steps of a compiled step on this rank's blocks; the
+    losses, the gathered phases and the host-clock ms of each step."""
+    st = ds.shard_state(state0, s_ps, mesh)
+    losses, ms = [], []
+    for _ in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        st, m = fn(st, ds.shard_state(batch, b_ps, mesh))
+        losses.append(float(m["loss"]))  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ds.gather_state(st, s_ps, mesh)["params"], ms
+
+
+def _ref_steps(cfg, dev, state0, batch) -> tuple:
+    step = ds.make_donn_train_step(cfg, AdamW(lr=0.05), device=dev)
+    st = tree_map(lambda t: t.to(dev), state0)
+    losses = []
+    for _ in range(MESH_STEPS):
+        st, m = step(st, batch)
+        losses.append(float(m["loss"]))
+    return losses, st["params"]
+
+
+def _step_errs(got, want) -> dict:
+    (losses, params), (wlosses, wparams) = got, want
+    scale = max(float(p.abs().max()) for p in tree_leaves(wparams))
+    perr = max(float((params["phase"][k].cpu() - wparams["phase"][k].cpu())
+                     .abs().max()) for k in wparams["phase"]) / scale
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(losses, wlosses))
+    return {"losses": losses, "ref_losses": wlosses, "loss_rel": lerr,
+            "param_rel": perr}
+
+
+def _state0(cfg, seed: int):
+    """A global train state drawn on the CPU: every rank draws the same."""
+    return init_params(ds.donn_state_specs(cfg),
+                       torch.Generator().manual_seed(seed))
+
+
+def _cls_batch(seed: int, b: int = MESH_BUCKET) -> dict:
+    return {"images": _digits(b, seed),
+            "labels": (np.arange(b) % 10).astype(np.int64)}
+
+
+def _mesh_dp(world: int, dev) -> dict:
+    """donn-mnist-5l with the kernels, data parallel over every rank:
+    serving at bucket 32 (each rank B/world rows) and MESH_STEPS training
+    steps, each rank's launches counted; rank 0 then runs the single-rank
+    engine and step (not counted)."""
+    cfg = dataclasses.replace(get_config("donn-mnist-5l"), use_pallas=True)
+    model = build_model(cfg, device=dev)
+    dep = freeze(model, model.init(torch.Generator().manual_seed(0)),
+                 device=dev)
+    x = _digits(MESH_BUCKET, seed=21)
+    batch = _cls_batch(22)
+    eng = InferenceEngine(dep, buckets=(MESH_BUCKET,), mesh_devices=world,
+                          device=dev)
+    mesh = shd.make_mesh_2d(world, 1, device=dev)
+    fn, s_ps, b_ps, _ = ds.compile_donn_train_step(
+        cfg, mesh, optimizer=AdamW(lr=0.05), global_batch=MESH_BUCKET,
+        device=dev)
+    state0 = _state0(cfg, 1)
+    out = {}
+
+    def serve():
+        out["logits"] = eng.infer(x)
+        out["repeat"] = bool(np.array_equal(out["logits"], eng.infer(x)))
+
+    def train():
+        out["train"] = _mesh_steps(fn, s_ps, b_ps, mesh, state0, batch)[:2]
+
+    out["serve_launches"] = _counted(serve)
+    out["train_launches"] = _counted(train)
+    out["want_serve"] = {k: 2 * v for k, v in serve_launches(dep).items()}
+    out["want_train"] = {k: MESH_STEPS * v for k, v in
+                         train_launches_per_step(cfg.depth)["scan"].items()}
+    if torch.distributed.get_rank() == 0:
+        ref = InferenceEngine(dep, buckets=(MESH_BUCKET,),
+                              device=dev).infer(x)
+        out["serve_rel"] = _rel_np(out["logits"], ref)
+        out["argmax_equal"] = bool(np.array_equal(out["logits"].argmax(-1),
+                                                  ref.argmax(-1)))
+        out["step"] = _step_errs(out["train"],
+                                 _ref_steps(cfg, dev, state0, batch))
+    del out["train"]
+    return out
+
+
+class _OneRank:
+    """A 1x1 mesh seen through its shape: the sharded loss on one rank."""
+
+    shape = {"data": 1, "model": 1}
+
+
+def _single_grads(cfg, model, params, batch, dev, plain: bool = False):
+    """(loss, d/dphase) on this rank alone: the model's own loss (cuFFT's
+    fft2 hops), or with ``plain`` the sharded loss on a one-rank mesh (the
+    pencil FFT's passes, W then H, with no exchange)."""
+    b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+    def loss_fn(p, bb):
+        if cfg.segmentation:
+            return bce_segmentation_loss(model.apply(p, bb["images"],
+                                                     train=True), bb["masks"])
+        return mse_softmax_loss(model.apply(p, bb["images"]), bb["labels"],
+                                cfg.num_classes)
+
+    if plain:
+        loss_fn = ds.make_donn_sharded_loss(cfg, _OneRank(), device=dev)
+    return _mesh_grads(loss_fn, params, b)
+
+
+def _sharded_case(cfg, params, batch, d: int, m: int, dev,
+                  calibrate: bool) -> dict:
+    """The sharded loss and d/dphase at a (d, m) mesh against the
+    single-rank ones (rank 0 returns them).
+
+    The loss is held against both single-rank losses (the pencil FFT's
+    passes and fft2), d/dphase against the same passes on one rank: cuFFT's
+    fft2 and the two 1-D passes round apart, and at depth 30 that alone
+    moves d/dphase by about 1e-5 of its max (printed beside).  A classify
+    loss (``calibrate``) is held at the gamma ``calibrate_gamma`` picks: at
+    a config's own gamma its logits reach thousands and the saturated
+    softmax turns any f32 reordering into d/dphase gaps far above 1e-5;
+    rank 0 prints that floor, one rank's passes against fft2 at the
+    config's gamma."""
+    rank0 = torch.distributed.get_rank() == 0
+    model = build_model(cfg, device=dev)
+    out = {}
+    if calibrate:
+        if rank0:
+            out["floor"] = _grad_err(
+                _single_grads(cfg, model, params, batch, dev, plain=True)[1],
+                _single_grads(cfg, model, params, batch, dev)[1])
+        gamma = [calibrate_gamma(model, params, batch["images"])
+                 if rank0 else None]
+        torch.distributed.broadcast_object_list(gamma, src=0)
+        cfg = dataclasses.replace(cfg, gamma=gamma[0])
+        model = build_model(cfg, device=dev)
+        out["gamma"] = gamma[0]
+    mesh = shd.make_mesh_2d(d, m, device=dev)
+    rules = shd.donn_rules()
+    pps = shd.tree_pspecs(ds.donn_state_specs(cfg)["params"], mesh, rules)
+    bps = {k: shd.batch_pspec(mesh, np.ndim(v), rules)
+           for k, v in batch.items()}
+    loss_fn = ds.make_donn_sharded_loss(cfg, mesh, device=dev)
+    t0 = time.perf_counter()
+    loss, grads = _mesh_grads(loss_fn, ds.shard_state(params, pps, mesh),
+                              ds.shard_state(batch, bps, mesh))
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    grads = ds.gather_state(grads, pps, mesh)
+    if not rank0:
+        return None
+    plain = _single_grads(cfg, model, params, batch, dev, plain=True)
+    fft2 = _single_grads(cfg, model, params, batch, dev)
+    return {**out, "loss": loss, "ref_loss": fft2[0],
+            "loss_rel": max(abs(loss - r[0]) / abs(r[0])
+                            for r in (plain, fft2)),
+            "grad_rel": _grad_err(grads, plain[1]),
+            "fft2_grad_rel": _grad_err(grads, fft2[1]),
+            "fft2_floor": _grad_err(plain[1], fft2[1])}
+
+
+def _mesh_xl(world: int, dev, meshes: dict) -> dict:
+    """donn-xl-500 at full width, row-sharded: the loss and d/dphase at each
+    mesh of ``meshes["loss"]``, MESH_STEPS sharded steps at
+    ``meshes["step"]``, the row-sharded engines of ``meshes["serve"]``, and
+    the times of the pencil fft2 and of the engine (rank 0 reports)."""
+    cfg = get_config("donn-xl-500")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = _cls_batch(31)
+    rank0 = torch.distributed.get_rank() == 0
+    out = {"loss": {}, "serve": {}}
+    for d, m in meshes["loss"]:
+        out["loss"][f"{d}x{m}"] = _sharded_case(cfg, params, batch, d, m,
+                                                dev, calibrate=True)
+    for d, m in meshes["step"]:
+        mesh = shd.make_mesh_2d(d, m, device=dev)
+        fn, s_ps, b_ps, _ = ds.compile_donn_train_step_sharded(
+            cfg, mesh, optimizer=AdamW(lr=0.05), global_batch=MESH_BUCKET,
+            device=dev)
+        state0 = _state0(cfg, 1)
+        losses, phases, ms = _mesh_steps(fn, s_ps, b_ps, mesh, state0, batch)
+        if rank0:
+            out[f"step {d}x{m}"] = {**_step_errs(
+                (losses, phases), _ref_steps(cfg, dev, state0, batch)),
+                "ms": ms}
+    dep = freeze(model, params, device=dev)
+    x = _digits(MESH_BUCKET, seed=32)
+    want = (InferenceEngine(dep, buckets=(MESH_BUCKET,), device=dev).infer(x)
+            if rank0 else None)
+    for d, m in meshes["serve"]:
+        eng = InferenceEngine(dep, buckets=(MESH_BUCKET,), mesh_devices=d,
+                              model_devices=m, device=dev)
+        got = eng.infer(x)
+        same = bool(np.array_equal(got, eng.infer(x)))
+        ms = []
+        for _ in range(MESH_REPS):
+            t0 = time.perf_counter()
+            eng.infer(x)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if want is not None:
+            out["serve"][f"{d}x{m}"] = {
+                "rel": _rel_np(got, want), "repeat": same,
+                "argmax_equal": bool(np.array_equal(got.argmax(-1),
+                                                    want.argmax(-1))),
+                "req_s": [MESH_BUCKET / (t / 1e3) for t in ms]}
+    # one pencil fft2 of this rank's rows of a (32, 500, 500) field
+    mesh = shd.make_mesh_2d(1, world, device=dev)
+    fft2, _ = pencil_fft.local_spectral_pair(mesh.get_group("model"), world)
+    u = _cfield((MESH_BUCKET, cfg.n // world, cfg.n),
+                torch.Generator().manual_seed(5), dev)
+    fft2(u)
+    ms = []
+    for _ in range(MESH_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fft2(u)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["pencil_ms"] = ms
+    out["pencil_shape"] = (MESH_BUCKET, cfg.n, cfg.n)
+    return out
+
+
+def _mesh_families(world: int, dev, shape) -> dict:
+    """donn-rgb and donn-seg (full width, no kernels) at the (2, 2) mesh,
+    or hybrid-slm-printed at (1, 2): the sharded loss and d/dphase against
+    the single-rank ones."""
+    out = {}
+    cases = ((("donn-rgb", get_config("donn-rgb")),
+              ("donn-seg", get_config("donn-seg")))
+             if shape == (2, 2) else
+             (("hybrid-slm-printed", HYBRID_SLM_PRINTED),))
+    for name, cfg in cases:
+        params = build_model(cfg, device=dev).init(
+            torch.Generator().manual_seed(7))
+        rng = np.random.default_rng(8)
+        if cfg.channels > 1:
+            batch = {"images": rng.random((MESH_BUCKET, cfg.channels, 28, 28),
+                                          np.float32),
+                     "labels": np.arange(MESH_BUCKET) % cfg.num_classes}
+        elif cfg.segmentation:
+            batch = {"images": rng.random((MESH_BUCKET, 28, 28), np.float32),
+                     "masks": (rng.random((MESH_BUCKET, cfg.n, cfg.n)) > 0.5)
+                     .astype(np.float32)}
+        else:
+            batch = _cls_batch(9)
+        out[name] = _sharded_case(cfg, params, batch, *shape, dev,
+                                  calibrate=not cfg.segmentation)
+    return out
+
+
+def _mesh_rank(rank: int, world: int) -> dict:
+    """Every mesh hold of a world of ``world`` gloo ranks on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {"dp": _mesh_dp(world, dev)}
+    if world == 2:
+        out["xl"] = _mesh_xl(world, dev, {"loss": [(1, 2)], "step": [],
+                                          "serve": [(1, 2)]})
+        out["families"] = _mesh_families(world, dev, (1, 2))
+    else:
+        out["xl"] = _mesh_xl(world, dev, {"loss": [(2, 2), (1, 4)],
+                                          "step": [(2, 2)],
+                                          "serve": [(1, 4), (2, 2)]})
+        out["families"] = _mesh_families(world, dev, (2, 2))
+    return out
+
+
+def _mesh_holds(world: int, backend: str, ranks: list, smi: str,
+                bad: list) -> dict:
+    """Print and check one spawn's results; returns its launches summed
+    over the ranks.  Failed holds are appended to ``bad``."""
+    tag = f"[mesh] {world} {_mesh_label(world, backend)}"
+
+    def hold(what, ok, line):
+        print(f"{tag}: {what}: {line}{'' if ok else '  FAILED'}")
+        if not ok:
+            bad.append(f"{world} ranks: {what}")
+
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for r, res in enumerate(ranks):
+        dp = res["dp"]
+        for part in ("serve", "train"):
+            got, want = dp[f"{part}_launches"], dp[f"want_{part}"]
+            hold(f"rank {r} data-parallel {part} launches", got == want,
+                 f"{got} (expected {want})")
+            _add(total, got)
+    dp = ranks[0]["dp"]
+    hold("data-parallel serving vs the single-rank engine",
+         dp["serve_rel"] <= MESH_RTOL and dp["argmax_equal"]
+         and all(r["dp"]["repeat"] for r in ranks)
+         and all(np.array_equal(r["dp"]["logits"], dp["logits"])
+                 for r in ranks),
+         f"rel {dp['serve_rel']:.3e} (tol {MESH_RTOL:g}), argmax equal "
+         f"{dp['argmax_equal']}, repeats bitwise, every rank the whole "
+         "logits")
+    s = dp["step"]
+    hold(f"data-parallel step ({MESH_STEPS} steps) vs the single-device "
+         "step", s["loss_rel"] <= MESH_RTOL and s["param_rel"] <= MESH_STEP_RTOL,
+         f"losses {s['losses']} vs {s['ref_losses']} (rel "
+         f"{s['loss_rel']:.3e}), params rel {s['param_rel']:.3e} (tol "
+         f"{MESH_STEP_RTOL:g})")
+    xl = ranks[0]["xl"]
+    def loss_line(c):
+        line = (f"loss {c['loss']:.6f} vs {c['ref_loss']:.6f} (rel "
+                f"{c['loss_rel']:.3e} of both single-rank losses), d/dphase "
+                f"rel {c['grad_rel']:.3e} against the same passes on one "
+                f"rank (tol {MESH_RTOL:g}), {c['fft2_grad_rel']:.3e} against "
+                f"fft2 (one rank's passes against fft2: "
+                f"{c['fft2_floor']:.3e}); {c['ms']:.1f} ms value+grad")
+        if "gamma" in c:
+            line += (f"; at calibrated gamma {c['gamma']:.6f} (at the "
+                     f"config's gamma one rank's pencil passes and fft2 "
+                     f"differ by {c['floor']:.3e} in d/dphase)")
+        return line
+
+    for shape, c in xl["loss"].items():
+        hold(f"donn-xl-500 sharded loss at {shape}",
+             c["loss_rel"] <= MESH_RTOL and c["grad_rel"] <= MESH_RTOL,
+             loss_line(c))
+    for key in [k for k in xl if k.startswith("step")]:
+        s = xl[key]
+        hold(f"donn-xl-500 {key} ({MESH_STEPS} sharded steps)",
+             s["loss_rel"] <= MESH_RTOL and s["param_rel"] <= MESH_STEP_RTOL,
+             f"losses {s['losses']} vs {s['ref_losses']} (rel "
+             f"{s['loss_rel']:.3e}), params rel {s['param_rel']:.3e}; ms a "
+             f"step {[round(t, 2) for t in s['ms']]} ({smi})")
+    for shape, c in xl["serve"].items():
+        hold(f"donn-xl-500 row-sharded engine at {shape}",
+             c["rel"] <= MESH_RTOL and c["repeat"] and c["argmax_equal"],
+             f"rel {c['rel']:.3e}, repeat bitwise {c['repeat']}; req/s "
+             f"{[round(v, 2) for v in c['req_s']]} at bucket {MESH_BUCKET} "
+             f"({smi})")
+    print(f"{tag}: pencil fft2 of {xl['pencil_shape']} over {world} "
+          f"ranks: ms {[round(t, 3) for t in xl['pencil_ms']]} ({smi})")
+    for name, c in ranks[0]["families"].items():
+        hold(f"{name} sharded loss",
+             c["loss_rel"] <= MESH_RTOL and c["grad_rel"] <= MESH_RTOL,
+             loss_line(c))
+    return total
+
+
+def _mesh_nccl(dev, smi: str, bad: list):
+    """NCCL at world size = the cards there are: a (1, 1) mesh in this
+    process (the data-parallel step over it and the engine bitwise the same
+    calls with no process group), then with 2+ cards every mesh hold again
+    on one NCCL rank a card (up to 4), whose launches it returns."""
+    cfg = dataclasses.replace(get_config("donn-mnist-5l"), use_pallas=True)
+    model = build_model(cfg, device=dev)
+    dep = freeze(model, model.init(torch.Generator().manual_seed(0)),
+                 device=dev)
+    x = _digits(MESH_BUCKET, seed=21)
+    batch = _cls_batch(22)
+    state0 = _state0(cfg, 1)
+    want_logits = InferenceEngine(dep, buckets=(MESH_BUCKET,),
+                                  device=dev).infer(x)
+    want = _ref_steps(cfg, dev, state0, batch)
+    mesh = shd.make_mesh_2d(1, 1, device=dev)  # NCCL, one rank
+    try:
+        backend = torch.distributed.get_backend()
+        got_logits = InferenceEngine(dep, buckets=(MESH_BUCKET,),
+                                     mesh_devices=1, device=dev).infer(x)
+        fn, s_ps, b_ps, _ = ds.compile_donn_train_step(
+            cfg, mesh, optimizer=AdamW(lr=0.05), global_batch=MESH_BUCKET,
+            device=dev)
+        losses, phases, _ = _mesh_steps(fn, s_ps, b_ps, mesh, state0, batch)
+    finally:
+        torch.distributed.destroy_process_group()
+    same = (np.array_equal(got_logits, want_logits) and losses == want[0]
+            and all(torch.equal(phases["phase"][k], want[1]["phase"][k])
+                    for k in want[1]["phase"]))
+    print(f"[mesh] {backend} at world size 1 on a (1, 1) mesh: engine and "
+          f"data-parallel step bitwise the calls without a process group: "
+          f"{same}")
+    if not same:
+        bad.append("NCCL (1, 1) mesh")
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[mesh] {n} card: NCCL ran at 1 rank only; the data-parallel "
+              "and row-sharded holds ran on gloo ranks sharing the card")
+        return None
+    world = min(n, 4)
+    ranks = spawn_ranks(_mesh_rank, world, (world,), device_type="cuda",
+                        backend="nccl", timeout=MESH_TIMEOUT_S)
+    return _mesh_holds(world, "nccl", ranks, smi, bad)
+
+
+def phase_mesh(dev, smi: str) -> dict:
+    """The multi-device slice on the card: gloo ranks sharing it (2, then
+    4), NCCL at the cards' count; returns the mesh launches summed over
+    every rank."""
+    t_phase = time.perf_counter()
+    cfg = get_config("donn-xl-500")
+    u = _cfield((MESH_BUCKET, cfg.n, cfg.n), torch.Generator().manual_seed(5),
+                dev)
+    print(f"[mesh] torch.fft.fft2 of {tuple(u.shape)}, one process: "
+          f"{device_ms(lambda: torch.fft.fft2(u), reps=20):.3f} ms ({smi})")
+    del u
+    xl = build_model(cfg, device=dev)
+    eng = InferenceEngine(freeze(xl, xl.init(torch.Generator().manual_seed(0)),
+                                 device=dev), buckets=(MESH_BUCKET,),
+                          device=dev)
+    x = _digits(MESH_BUCKET, seed=32)
+    eng.infer(x)
+    ms = []
+    for _ in range(MESH_REPS):
+        t0 = time.perf_counter()
+        eng.infer(x)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[mesh] donn-xl-500 engine, one process (k=1): req/s "
+          f"{[round(MESH_BUCKET / (t / 1e3), 2) for t in ms]} at bucket "
+          f"{MESH_BUCKET} ({smi})")
+    del eng, xl
+    torch.cuda.empty_cache()
+    bad, total = [], dict.fromkeys(ops.KERNELS, 0)
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_mesh_rank, world, (world,), device_type="cuda",
+                            backend="gloo", timeout=MESH_TIMEOUT_S)
+        _add(total, _mesh_holds(world, "gloo", ranks, smi, bad))
+        print(f"[mesh] {world} ranks: {time.perf_counter() - t0:.1f}s")
+    nccl = _mesh_nccl(dev, smi, bad)
+    if nccl is not None:
+        _add(total, nccl)
+    print(f"[mesh] launches summed over the ranks {total}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    if bad:
+        raise AssertionError("mesh holds failed: " + "; ".join(bad))
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="FILE", default=None,
@@ -2972,6 +3474,7 @@ def main(argv=None) -> int:
     design = phase_design(dev, smi, args.profile)
     lm_windows = phase_lm(dev, smi, args.profile)
     persistence = phase_persistence(dev, smi)
+    mesh = phase_mesh(dev, smi)
     kernels = []
     for name in ops.KERNELS:
         r = rows[name]
@@ -2982,13 +3485,14 @@ def main(argv=None) -> int:
             "replaces": replaces,
             # the main path: DONN serving and training, the advanced
             # families, the design flow, LM serving, persistence and the
-            # fleet; the LM holds (K6 on q/k, K7 on the mixer tensors) apart
+            # fleet, the mesh's ranks; the LM holds (K6 on q/k, K7 on the
+            # mixer tensors) apart
             "launches": (launches[name] + train["counted"][name]
                          + sum(f[name] for f in families.values())
                          + sum(d[name] for d in design.values())
                          + sum(v for w, v in lm_launches.items()
                                if w.startswith("lm_serve"))
-                         + persistence[name]),
+                         + persistence[name] + mesh[name]),
             "hold_launches": sum(v for w, v in lm_launches.items()
                                  if w.startswith("lm_hold")),
             "serve_launches": launches[name],
@@ -2998,6 +3502,7 @@ def main(argv=None) -> int:
             "design_launches": {d: c[name] for d, c in design.items()},
             "lm_launches": lm_launches,
             "persistence_launches": persistence[name],
+            "mesh_launches": mesh[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

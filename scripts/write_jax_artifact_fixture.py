@@ -13,8 +13,8 @@ interpret mode) and writes ``tests/fixtures/jax_artifact_n64/``:
 - ``x.npy`` — a seeded batch of 8 20x20 inputs (numpy ``default_rng(0)``);
 - ``jax_out_{f32,bf16,int8}.npy`` — the JAX deployment's logits for it.
 
-This is the one script of the repo that imports the JAX package: the port
-never runs it.  The tests and ``chip_smoke.py`` only read what it wrote
+One of the two scripts of the repo that import the JAX package (with
+``reference_mesh_gap.py``): the port never runs it.  The tests and ``chip_smoke.py`` only read what it wrote
 (committed, under 300 KB); rerun it after a change to the artifact format
 and commit the result.
 """

@@ -1,9 +1,10 @@
 """Carry parameters over from the JAX package.
 
-Both functions take a JAX model's parameter pytree as nested dicts of
-numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX side) and
-return the same dicts of float32 tensors on ``device``:
-``params_from_jax`` a DONN's ``{"phase": {"layer_i": tensor}}``,
+The functions take JAX pytrees as nested dicts of numpy arrays
+(``jax.tree.map(np.asarray, tree)`` on the JAX side) and return the same
+dicts of tensors on ``device``: ``params_from_jax`` a DONN's ``{"phase":
+{"layer_i": tensor}}``, ``donn_state_from_jax`` a DONN train state
+(``{"params", "mu", "nu", "step"}``, ``repro.runtime.donn_steps``),
 ``lm_params_from_jax`` an LM's ``{"embed", "final_norm", "blocks"}`` tree
 (stacked "layers" axis kept).  They only walk dicts: nothing of JAX is
 imported.
@@ -31,6 +32,20 @@ def params_from_jax(tree, device=None) -> dict:
     out = _float_tree(tree, resolve_device(device))
     if not isinstance(out, dict) or "phase" not in out:
         raise ValueError("expected a DONN parameter tree {'phase': {...}}")
+    return out
+
+
+def donn_state_from_jax(state, device=None) -> dict:
+    """A JAX DONN train state -> the port's, on ``device``: params and AdamW
+    moments float32, ``step`` an int32 scalar."""
+    missing = {"params", "mu", "nu", "step"} - set(state)
+    if missing:
+        raise ValueError(f"expected a DONN train state; missing "
+                         f"{sorted(missing)}")
+    dev = resolve_device(device)
+    out = {k: params_from_jax(state[k], dev) for k in ("params", "mu", "nu")}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=dev)
     return out
 
 

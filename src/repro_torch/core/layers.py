@@ -21,6 +21,7 @@ from repro_torch.core import codesign as cd
 from repro_torch.core import diffraction as df
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.nn.module import ParamSpec
 
 
 class DiffractiveLayer:
@@ -63,6 +64,11 @@ class DiffractiveLayer:
             self.h = cached_transfer_function(grid, z, wavelength, method,
                                               band_limit, pad=pad)
         self._h_dev: dict = {}  # str(torch device) -> uploaded TF
+
+    def param_spec(self) -> ParamSpec:
+        n = self.grid.n
+        return ParamSpec((n, n), torch.float32, ("field_h", "field_w"),
+                         init="uniform_phase")
 
     def propagate(self, u: torch.Tensor) -> torch.Tensor:
         if self.method == df.FRAUNHOFER:

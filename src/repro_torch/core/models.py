@@ -133,6 +133,12 @@ class _PhaseStack:
         return {"phase": {f"layer_{i}": (l.grid.n, l.grid.n)
                           for i, l in enumerate(self.layers)}}
 
+    def param_specs(self) -> dict:
+        """One ``ParamSpec`` a layer, rows and columns named for the
+        sharding rules (``("field_h", "field_w")``)."""
+        return {"phase": {f"layer_{i}": l.param_spec()
+                          for i, l in enumerate(self.layers)}}
+
     def init(self, generator: torch.Generator) -> dict:
         return _uniform_phases(self.param_shapes(), generator, self.device)
 
@@ -231,6 +237,14 @@ class MultiChannelDONN:
         c = self.cfg.channels
         return {"phase": {k: (c,) + tuple(s) for k, s in
                           self.channel_model.param_shapes()["phase"].items()}}
+
+    def param_specs(self) -> dict:
+        """The channel model's specs with a leading ``"channel"`` axis."""
+        c = self.cfg.channels
+        return {"phase": {
+            k: dataclasses.replace(s, shape=(c,) + tuple(s.shape),
+                                   logical_axes=("channel",) + s.logical_axes)
+            for k, s in self.channel_model.param_specs()["phase"].items()}}
 
     def init(self, generator: torch.Generator) -> dict:
         return _uniform_phases(self.param_shapes(), generator, self.device)

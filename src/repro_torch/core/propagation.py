@@ -363,8 +363,21 @@ class PropagationPlan:
             pair = (m.real, m.imag)
         return quantize_frozen_planes(pair, plane_dtype)
 
-    def _hop(self, u: torch.Tensor, pair, lead: bool = False) -> torch.Tensor:
-        """One free-space gap with a prepared TF plane pair."""
+    def _hop(self, u: torch.Tensor, pair, lead: bool = False,
+             spectral=None) -> torch.Tensor:
+        """One free-space gap with a prepared TF plane pair.
+
+        ``spectral`` overrides the (fft2, ifft2) pair: the distributed hop,
+        ``repro_torch.runtime.pencil_fft.local_spectral_pair``, on a field
+        and TF planes row-sharded over a group of ranks."""
+        if spectral is not None:
+            if self.method == df.FRAUNHOFER or self.pad:
+                raise NotImplementedError(
+                    "spectral-hop overrides support unpadded angular-"
+                    "spectrum methods only (no fraunhofer, no pad)"
+                )
+            fft2, ifft2 = spectral
+            return ifft2(self._spectral_mul(fft2(u), pair, lead))
         if self.method == df.FRAUNHOFER:
             spec = torch.fft.fftshift(torch.fft.fft2(u), dim=(-2, -1))
             return self._spectral_mul(spec, pair, lead)
@@ -408,7 +421,8 @@ class PropagationPlan:
     def forward(self, phis: Optional[torch.Tensor], u: torch.Tensor,
                 rng=None, start: int = 0, stop: Optional[int] = None,
                 tfs=None, mask=None, pre=None, frozen=None,
-                resolved: bool = False, lead: bool = False) -> torch.Tensor:
+                resolved: bool = False, lead: bool = False,
+                spectral=None) -> torch.Tensor:
         """Run layers [start, stop) over the field u.
 
         ``phis`` is the full (L, N, N) or (L, C, N, N) phase stack: the
@@ -426,31 +440,34 @@ class PropagationPlan:
         precomputed modulation planes from ``frozen_modulation`` instead —
         the deployment fast path, which skips the codesign entirely
         (``phis`` is then None).  ``pre`` is applied to the incoming field
-        first: the boundary resample a ``SegmentedPlan`` stitches in.  The
-        plan's ``remat`` checkpoints each layer or the whole loop when a
-        gradient is being recorded.
+        first: the boundary resample a ``SegmentedPlan`` stitches in.
+        ``spectral`` overrides every hop's (fft2, ifft2) (``_hop``); the
+        whole-hop fusion is off then.  The plan's ``remat`` checkpoints each
+        layer or the whole loop when a gradient is being recorded.
         """
         stop = self.depth if stop is None else stop
         if pre is not None:
             u = pre(u)
         a, b = self._tf_pair(u.device) if tfs is None else tfs
+        fuse = self._fuse and spectral is None
         if frozen is not None:
             frozen = tuple(frozen)
             for i in range(start, stop):
                 mod = dequant_frozen_layer(tuple(f[i] for f in frozen))
-                if self._fuse:
+                if fuse:
                     u = self._fused_layer(u, (a[i], b[i]), mod=mod)
                 else:
-                    u = self._modulate_frozen(self._hop(u, (a[i], b[i])), mod)
+                    u = self._modulate_frozen(
+                        self._hop(u, (a[i], b[i]), spectral=spectral), mod)
             return u
         phi_eff = phis if resolved else self.codesign_stack(phis, rng)
 
         def layer(u, a_l, b_l, phi, m=None):
-            if self._fuse:
+            if fuse:
                 new = self._fused_layer(u, (a_l, b_l), phi=phi, lead=lead)
             else:
-                new = self._modulate(self._hop(u, (a_l, b_l), lead), phi,
-                                     lead)
+                new = self._modulate(self._hop(u, (a_l, b_l), lead, spectral),
+                                     phi, lead)
             if m is None:
                 return new
             return torch.where(self._bcast(m[..., None, None], new, lead),
@@ -473,17 +490,17 @@ class PropagationPlan:
             return checkpoint(run, u, a, b, phi_eff, mask, use_reentrant=False)
         return run(u, a, b, phi_eff, mask)
 
-    def propagate_final(self, u: torch.Tensor, tfs=None,
-                        lead: bool = False) -> torch.Tensor:
+    def propagate_final(self, u: torch.Tensor, tfs=None, lead: bool = False,
+                        spectral=None) -> torch.Tensor:
         """The last free-space hop (layer plane -> detector, no modulation);
-        ``tfs`` and ``lead`` as in ``forward``."""
+        ``tfs``, ``lead`` and ``spectral`` as in ``forward``."""
         if not self.final_hop:
             raise ValueError(
                 "this plan is an inner segment (final_hop=False); the next "
                 "segment owns the following hop"
             )
         a, b = self._tf_pair(u.device) if tfs is None else tfs
-        return self._hop(u, (a[self.depth], b[self.depth]), lead)
+        return self._hop(u, (a[self.depth], b[self.depth]), lead, spectral)
 
     # --- real-to-complex first hop -------------------------------------
     def rfft_first_supported(self) -> bool:
@@ -536,16 +553,18 @@ class PropagationPlan:
 
     def apply(self, phis: Optional[torch.Tensor], u: torch.Tensor, rng=None,
               tfs=None, mask=None, frozen=None, resolved: bool = False,
-              lead: bool = False) -> torch.Tensor:
+              lead: bool = False, spectral=None) -> torch.Tensor:
         """Full stack: all layers then the final hop; the arguments are
         ``forward``'s.  ``frozen`` takes the precomputed modulation planes
         (``phis`` and ``rng`` unused)."""
         if frozen is not None:
             return self.propagate_final(
-                self.forward(None, u, tfs=tfs, frozen=frozen), tfs=tfs)
+                self.forward(None, u, tfs=tfs, frozen=frozen,
+                             spectral=spectral), tfs=tfs, spectral=spectral)
         return self.propagate_final(
             self.forward(phis, u, rng, tfs=tfs, mask=mask, resolved=resolved,
-                         lead=lead), tfs=tfs, lead=lead)
+                         lead=lead, spectral=spectral), tfs=tfs, lead=lead,
+            spectral=spectral)
 
     def apply_batch(self, phis: torch.Tensor, u: torch.Tensor, rng=None,
                     tfs=None, per_candidate_inputs: bool = False,

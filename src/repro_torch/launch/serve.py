@@ -8,8 +8,10 @@ slot (the reference's lockstep demo: a request admitted after the first
 wave starts emitting at once).  Parameters are random, drawn on the device
 from a ``torch.Generator`` seeded with ``--seed``.
 
-The flags are the reference's.  ``--mesh`` takes only ``1x1`` until the
-multi-device slice; ``--device`` defaults to the CUDA card.
+The flags are the reference's.  ``--mesh`` takes only ``1x1``: LM tensor
+parallelism comes with the rest of the LM family (ROADMAP queue 1, item
+11); the DONN mesh is ``repro_torch.runtime.sharding``.  ``--device``
+defaults to the CUDA card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
@@ -98,8 +100,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "1x1":
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the port serves on one device (1x1) until "
-            "the multi-device slice"
+            f"--mesh {args.mesh}: multi-device LM serving (tensor "
+            "parallelism) is not ported yet; it comes with the rest of the "
+            "LM family (ROADMAP queue 1, item 11)"
         )
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)

@@ -24,9 +24,14 @@ N engines on the one device instead of the single-engine ``MicroBatcher``
 requests a second than one engine: for failover and warm swap, not
 throughput).
 
-The flags are the reference's; multi-device dispatch (``--mesh-devices``
-above 1) comes with a later slice and raises ``NotImplementedError``.
-``--device`` defaults to the CUDA card.
+``--mesh-devices k`` serves data-parallel over k ranks
+(``InferenceEngine(mesh_devices=k)``).  Under a process group the command
+runs as its ranks: rank 0 takes the requests and broadcasts each batch
+it serves, and the other ranks serve the same batches with it.  Without a
+group it spawns the k ranks itself: one a card on CUDA (more ranks than
+cards is refused), k gloo ranks with ``--device cpu``.
+
+The flags are the reference's; ``--device`` defaults to the CUDA card.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve_donn --n 200 --depth 5 \
@@ -39,10 +44,12 @@ from __future__ import annotations
 
 import argparse
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.config import DONNConfig
 from repro_torch.core.models import build_model
@@ -76,11 +83,54 @@ def build_cfg(args) -> DONNConfig:
     return DONNConfig(**kw)
 
 
-def _refuse_later_slices(args) -> None:
-    if args.mesh_devices > 1:
-        raise NotImplementedError(
-            "--mesh-devices comes with the multi-device slice of the port"
-        )
+def _spawn_ranks(args, argv) -> float:
+    """Serve on ``--mesh-devices`` spawned ranks; rank 0's req/s."""
+    from repro_torch.runtime.collectives import spawn_ranks
+
+    k, dev = args.mesh_devices, torch.device(args.device)
+    if dev.type == "cuda" and k > torch.cuda.device_count():
+        raise ValueError(f"--mesh-devices {k} needs {k} cards, have "
+                         f"{torch.cuda.device_count()}")
+    return spawn_ranks(_rank_main, k, (list(argv),), device_type=dev.type,
+                       timeout=3600.0)[0]
+
+
+def _rank_main(rank, argv):
+    return main(argv)
+
+
+class _Leader:
+    """Rank 0's engine under a mesh: each ``infer`` is broadcast first, so
+    the other ranks (``_follow``) serve the same batch with it; a lock
+    keeps the broadcasts in the order the batches are served."""
+
+    def __init__(self, engine, index: int, lock: threading.Lock):
+        self._engine, self._index, self._lock = engine, index, lock
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def infer(self, x):
+        with self._lock:
+            dist.broadcast_object_list([(self._index, np.asarray(x))], src=0)
+            return self._engine.infer(x)
+
+
+def _receive():
+    """What rank 0 broadcasts next: (engine index, batch), or None."""
+    msg = [None]
+    dist.broadcast_object_list(msg, src=0)
+    return msg[0]
+
+
+def _follow(engines) -> None:
+    """A rank other than 0: serve what rank 0 broadcasts until None.  A
+    batch that fails here fails on rank 0 too, which reports it."""
+    for index, x in iter(_receive, None):
+        try:
+            engines[index].infer(x)
+        except Exception:  # noqa: BLE001 - rank 0 reports the request
+            pass
 
 
 def main(argv=None):
@@ -123,7 +173,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (the CUDA card unless asked)")
     args = ap.parse_args(argv)
-    _refuse_later_slices(args)
+    if args.mesh_devices > 1 and not dist.is_initialized():
+        return _spawn_ranks(args, sys.argv[1:] if argv is None else argv)
     if args.artifact:
         # format and architecture spec checked before anything is loaded
         # or warmed, so a bad artifact exits cleanly instead of mid-deploy
@@ -170,16 +221,35 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t_freeze = time.perf_counter() - t0
-    if args.save_artifact:
+    if args.save_artifact and (not dist.is_initialized()
+                               or dist.get_rank() == 0):
         save_deployed(deployed, args.save_artifact)
         print(f"[serve_donn] saved artifact to {args.save_artifact}")
     buckets = tuple(int(b) for b in args.buckets.split(","))
     n_replicas = max(args.replicas, 0)
     engines = []
     for _ in range(n_replicas or 1):
-        engine = InferenceEngine(deployed, buckets=buckets, device=device)
+        engine = InferenceEngine(deployed, buckets=buckets, device=device,
+                                 mesh_devices=args.mesh_devices or None)
         compiles = engine.warmup()  # every bucket before any traffic
         engines.append(engine)
+    if dist.is_initialized():
+        if dist.get_rank() != 0:
+            _follow(engines)
+            return None
+        lock = threading.Lock()
+        engines = [_Leader(e, i, lock) for i, e in enumerate(engines)]
+        try:
+            return _serve(args, cfg, deployed, engines, t_freeze, compiles)
+        finally:
+            dist.broadcast_object_list([None], src=0)
+    return _serve(args, cfg, deployed, engines, t_freeze, compiles)
+
+
+def _serve(args, cfg, deployed, engines, t_freeze, compiles) -> float:
+    """Drive the synthetic request stream through the dispatcher."""
+    n_replicas = max(args.replicas, 0)
+    device = engines[0].device
     engine = engines[0]
     verb = "loaded" if args.artifact else "froze"
     print(f"[serve_donn] {verb} {cfg.name} in {t_freeze * 1e3:.0f}ms; "
@@ -230,7 +300,8 @@ def main(argv=None):
           f"shed {shed}, expired {expired}; "
           f"{sum(e.stats['batches'] for e in engines)} batches, "
           f"{sum(e.stats['padded_rows'] for e in engines)} padded rows, "
-          f"replicas={n_replicas or 1}, clean_close={clean})")
+          f"mesh={args.mesh_devices or 1}, replicas={n_replicas or 1}, "
+          f"clean_close={clean})")
     return rps
 
 

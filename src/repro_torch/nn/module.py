@@ -1,4 +1,4 @@
-"""Minimal functional parameter system (the LM part of ``repro.nn.module``).
+"""Minimal functional parameter system (``repro.nn.module``).
 
 Parameters are nested dicts of tensors.  Every model exposes
 ``param_specs(cfg) -> tree of ParamSpec`` (shape, dtype, logical axes,
@@ -8,9 +8,9 @@ initializer) and ``init_params`` materializes a spec tree from a
 gives other numbers than the reference's threefry keys, so parity tests
 carry JAX parameters over with ``repro_torch.convert.lm_params_from_jax``.
 
-The logical axes are kept for the multi-device slice; its sharding
-helpers are not ported yet, nor the initializers of families still to
-port (``uniform_phase``, ``rglru_lambda``), which raise.
+The logical axes map onto the ``(data, model)`` mesh through the rules
+of ``repro_torch.runtime.sharding``.  The initializer of the LM family
+still to port (``rglru_lambda``) raises.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ class ParamSpec:
     shape: tuple
     dtype: Any = torch.float32
     logical_axes: tuple = ()
-    init: str = "fan_in"  # fan_in | normal | zeros | ones | embed | s4d_a_log
+    init: str = "fan_in"  # fan_in | normal | zeros | ones | uniform_phase
+    #                      | embed | s4d_a_log
     scale: float = 1.0
 
     def __post_init__(self):
@@ -52,6 +53,10 @@ def _initialize(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
         return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
+    if spec.init == "uniform_phase":  # phases in [0, 2pi): DONN layers
+        x = torch.rand(spec.shape, generator=gen, device=dev,
+                       dtype=torch.float32)
+        return (x * (2.0 * math.pi)).to(spec.dtype) * spec.scale
     if spec.init in ("normal", "embed"):
         return _normal(spec, gen, spec.scale)
     if spec.init == "fan_in":

@@ -1,0 +1,215 @@
+"""Collectives of the DONN mesh and the ranks that run them.
+
+The sharded DONN paths are SPMD programs: every rank of a
+``torch.distributed`` group runs the same code on its block.  The
+collectives they need, each on a group of the mesh:
+
+- ``sum_over``: all-reduce sum whose backward is the identity.  Every rank
+  of the group goes on with the same sum (the per-class logits summed over
+  ``model``, the loss over ``data``) into the same loss, so each rank's
+  own cotangent already is the sum's; an all-reduce in the backward would
+  count it once a rank.
+- ``replicated``: identity whose backward all-reduces.  A parameter held
+  whole by every rank of a ``data`` group meets a different batch shard on
+  each; its gradient is the sum of theirs.
+- ``gather_rows``: all-gather along the row axis (-2).  Its backward keeps
+  the rank's own rows of the cotangent when the gathered tensor feeds a
+  computation every rank repeats alike (``reduce_grad=False``: the
+  segmentation loss over whole maps), and sums the ranks' cotangents first
+  when each rank goes on with other rows of it (``reduce_grad=True``: the
+  resampling stitch of a heterogeneous stack).
+- ``all_to_all``: the pencil FFT's exchange (``pencil_fft``); a
+  permutation, so its backward is the same exchange.
+
+Complex tensors travel as ``view_as_real`` float pairs (gloo does not take
+complex ones everywhere).  Gloo also takes CUDA tensors, staged through the
+host, which lets several ranks share one card.
+
+``spawn_ranks`` runs a function on ``world`` spawned processes joined by a
+file rendezvous and returns what each rank returned.
+"""
+from __future__ import annotations
+
+import multiprocessing
+import queue
+import tempfile
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+
+
+def _real(t: torch.Tensor) -> torch.Tensor:
+    t = t.contiguous()
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+def _like(buf: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_complex(buf) if t.is_complex() else buf
+
+
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: the sum of ``t`` over ``group`` (None: ``t`` alone)."""
+    if group is None:
+        return t.clone()
+    buf = _real(t).clone()
+    dist.all_reduce(buf, group=group)
+    return _like(buf, t)
+
+
+def all_gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``t`` of every rank of ``group``, concatenated along ``dim`` in rank
+    order (None: ``t`` alone)."""
+    if group is None:
+        return t
+    buf = _real(t)
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    return torch.cat([_like(p, t) for p in parts], dim=dim)
+
+
+def exchange(t: torch.Tensor, group) -> torch.Tensor:
+    """All-to-all over dim 0: slot j of ``t`` goes to rank j of ``group``,
+    and slot j of the result came from rank j."""
+    buf = _real(t)
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group)
+    return _like(out, t)
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce_sum(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, reduce_grad):
+        ctx.group, ctx.reduce_grad = group, reduce_grad
+        ctx.rows = t.shape[-2]
+        ctx.index = dist.get_rank(group)
+        return all_gather_dim(t, group, -2)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.reduce_grad:
+            g = all_reduce_sum(g, ctx.group)
+        return g.narrow(-2, ctx.index * ctx.rows, ctx.rows), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return exchange(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange(g, ctx.group), None
+
+
+def sum_over(t: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce sum, identity backward (see the module docstring)."""
+    return t if group is None else _SumOver.apply(t, group)
+
+
+def replicated(t: torch.Tensor, group) -> torch.Tensor:
+    """Identity, all-reduce-sum backward (see the module docstring)."""
+    return t if group is None else _Replicated.apply(t, group)
+
+
+def gather_rows(t: torch.Tensor, group, reduce_grad: bool) -> torch.Tensor:
+    """All-gather along dim -2 (see the module docstring)."""
+    return t if group is None else _GatherRows.apply(t, group, reduce_grad)
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``exchange`` with its own exchange as the backward (None: ``t``)."""
+    return t if group is None else _AllToAll.apply(t, group)
+
+
+# --------------------------------------------------------------------------
+# Spawned ranks
+# --------------------------------------------------------------------------
+def _rank_entry(fn, rank, world, init_method, backend, device_type, args, q):
+    try:
+        if device_type == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=world)
+        q.put((rank, True, fn(rank, *args)))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        q.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, args: tuple = (), *, device_type: str = "cpu",
+                backend=None, timeout: float = 120.0) -> list:
+    """Run ``fn(rank, *args)`` on ``world`` spawned ranks of one process
+    group and return their results in rank order.
+
+    The ranks meet through a file in a temporary directory.  ``backend``
+    defaults to NCCL for CUDA ranks and gloo for the CPU; CUDA rank r uses
+    card r modulo the cards there are (gloo ranks may share one).  A rank
+    that raises, dies or is still running after ``timeout`` seconds fails
+    the call with ``RuntimeError``; every rank is ended before it returns.
+    """
+    backend = backend or ("nccl" if device_type == "cuda" else "gloo")
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    results: dict = {}
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        procs = [ctx.Process(target=_rank_entry, args=(
+            fn, r, world, f"file://{tmp}/rendezvous", backend, device_type,
+            args, q)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        try:
+            while len(results) < world and time.monotonic() < deadline:
+                try:
+                    rank, ok, val = q.get(timeout=0.5)
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(procs)
+                            if r not in results and p.exitcode is not None]
+                    if dead:
+                        raise RuntimeError(
+                            f"rank(s) {dead} exited without a result "
+                            f"(exit codes {[procs[r].exitcode for r in dead]})"
+                        ) from None
+                    continue
+                results[rank] = (ok, val)
+        finally:
+            for p in procs:
+                p.join(timeout=10)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    failed = {r: v for r, (ok, v) in results.items() if not ok}
+    if failed:
+        raise RuntimeError("\n".join(f"rank {r} failed:\n{v}"
+                                     for r, v in sorted(failed.items())))
+    if len(results) < world:
+        missing = sorted(set(range(world)) - set(results))
+        raise RuntimeError(f"rank(s) {missing} gave no result within "
+                           f"{timeout:.0f}s")
+    return [results[r][1] for r in range(world)]

@@ -29,9 +29,18 @@ with the optical skip (``"seg"``), on uniform and heterogeneous
     ``load_deployed`` persist a deployment and cold-start it on the card;
     ``deployed_from_model`` takes the restored planes as they come off
     disk (moved to the deployment's device, storage dtype kept).
-
-Multi-device dispatch (``mesh_devices``/``model_devices`` above 1) comes
-with the multi-device slice and raises ``NotImplementedError``.
+5.  **Over a mesh of ranks** — SPMD ``torch.distributed`` ranks
+    (``sharding.make_mesh_2d``), every rank calling ``infer(x)`` with the
+    same ``x`` and returning the whole outputs.  ``mesh_devices=k``:
+    buckets of at least ``dp_min_bucket`` rows split over the ``data``
+    ranks, each running the whole frozen forward (kernels included) on its
+    rows with the planes replicated; the outputs are all-gathered.
+    ``model_devices=k`` row-shards the frozen stacks, TF planes and
+    detector masks over ``model`` (int8 scales replicated, as
+    ``sharding.operand_pspec`` resolves them), every hop a pencil FFT
+    (``pencil_fft.local_spectral_pair``), and sums the per-class partial
+    readouts over ``model``: planes too large for one card, classify
+    family, no kernels (the reference refuses ``use_pallas`` there).
 """
 from __future__ import annotations
 
@@ -43,11 +52,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import diffraction as df
 from repro_torch.core import models as md
 from repro_torch.core import propagation as pp
 from repro_torch.core.laser import data_to_cplex, data_to_real
 from repro_torch.data.pipeline import bucket_for, pad_batch
 from repro_torch.device import resolve_device
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.collectives import all_gather_dim, all_reduce_sum
 from repro_torch.runtime.resilience import (
     DeadlineExceededError,
     OverloadedError,
@@ -210,12 +222,16 @@ class InferenceEngine:
     - a request batch pads to the smallest bucket that holds it; batches
       wider than the largest bucket chunk through it;
     - ``warmup()`` runs every bucket once at deploy time;
-    - ``donate`` is accepted for parity and has no effect.
+    - ``donate`` is accepted for parity and has no effect;
+    - ``mesh_devices`` x ``model_devices`` ranks (item 5 of the module
+      docstring): every rank of the process group builds the engine and
+      calls ``infer`` with the same requests.
     """
 
     def __init__(self, deployed: DeployedDONN,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  donate: bool = True, mesh_devices: Optional[int] = None,
+                 dp_min_bucket: int = 8,
                  model_devices: Optional[int] = None, device=None):
         self.device = resolve_device(device)
         if deployed.device != self.device:
@@ -228,15 +244,30 @@ class InferenceEngine:
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError("buckets must be positive ints")
         self.donate = donate
+        self.dp_min_bucket = int(dp_min_bucket)
         self.ndev = int(mesh_devices) if mesh_devices else 1
         self.mp = int(model_devices) if model_devices else 1
         if self.ndev < 1 or self.mp < 1:
             raise ValueError("mesh_devices/model_devices must be >= 1")
-        if self.ndev > 1 or self.mp > 1:
-            raise NotImplementedError(
-                "multi-device serving (mesh_devices/model_devices > 1) "
-                "comes with the multi-device slice"
+        if self.ndev * self.mp > shd.world_size():
+            raise ValueError(
+                f"mesh needs {self.ndev * self.mp} ranks ({self.ndev} data x "
+                f"{self.mp} model), have {shd.world_size()}"
             )
+        if (self.ndev > 1 or self.mp > 1) and deployed.heterogeneous:
+            raise NotImplementedError(
+                "multi-device dispatch covers uniform plans (segmented "
+                "frozen planes are a ragged tree)"
+            )
+        if self.mp > 1:
+            _check_row_sharded(deployed, self.mp)
+        self._mesh = None
+        if self.ndev > 1 or self.mp > 1:
+            self._mesh = shd.make_mesh_2d(self.ndev, self.mp,
+                                          device=self.device)
+            self._data_group = shd.axes_group(self._mesh, "data")
+        if self.mp > 1:
+            self._rows = _RowShards(deployed, self._mesh)
         self.stats = {"requests": 0, "batches": 0, "padded_rows": 0}
 
     def _x_ndim(self) -> int:
@@ -246,8 +277,20 @@ class InferenceEngine:
         return np.zeros((bucket,) + expected_request_shape(self.deployed),
                         np.float32)
 
+    def _dp(self, bucket: int) -> bool:
+        return (self.ndev > 1 and bucket >= self.dp_min_bucket
+                and bucket % self.ndev == 0)
+
     def _run(self, xp: np.ndarray) -> torch.Tensor:
-        return self.deployed.forward(torch.from_numpy(xp).to(self.device))
+        dp = self._dp(xp.shape[0])
+        if dp:  # this data rank's rows of the bucket
+            idx, count = shd.axes_index(self._mesh, "data")
+            rows = xp.shape[0] // count
+            xp = xp[idx * rows:(idx + 1) * rows]
+        x = torch.from_numpy(np.ascontiguousarray(xp)).to(self.device)
+        out = (self._rows.forward(x) if self.mp > 1
+               else self.deployed.forward(x))
+        return all_gather_dim(out, self._data_group, 0) if dp else out
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> dict:
         """Run every bucket once now (kernel build, FFT plans).
@@ -284,6 +327,79 @@ class InferenceEngine:
             self.stats["requests"] += int(chunk.shape[0])
             self.stats["padded_rows"] += bucket - int(chunk.shape[0])
         return np.concatenate(outs, axis=0)
+
+
+def _check_row_sharded(deployed: DeployedDONN, k: int) -> None:
+    """What row-sharded serving refuses, as the reference does."""
+    cfg = deployed.cfg
+    if deployed.family != "cls":
+        raise NotImplementedError(
+            "row-sharded serving covers the classify family; RGB and "
+            "segmentation row-shard on the training path only "
+            "(donn_steps.make_donn_sharded_loss)"
+        )
+    if deployed.rfft_first:
+        raise NotImplementedError(
+            "rfft_first's half-spectrum entry hop is not row-shardable; "
+            "freeze with rfft_first=False to serve model-parallel"
+        )
+    if cfg.use_pallas:
+        raise NotImplementedError(
+            "the fused hand-written kernels operate on full planes"
+        )
+    if cfg.pad or any(l.approximation == "fraunhofer"
+                      for l in cfg.resolved_layers()):
+        raise NotImplementedError(
+            "row-sharded serving needs unpadded angular-spectrum hops (the "
+            "spectral-override contract, plan._hop)"
+        )
+    n = deployed.plan.grid.n
+    if n % k:
+        raise ValueError(f"field rows n={n} not divisible by "
+                         f"model_devices={k}")
+
+
+class _RowShards:
+    """This rank's row blocks of a classify deployment's frozen planes, TF
+    stacks and detector masks, and the frozen forward over them."""
+
+    def __init__(self, deployed: DeployedDONN, mesh):
+        from repro_torch.runtime.donn_steps import _plan_tf_stacks
+        from repro_torch.runtime.pencil_fft import local_spectral_pair
+
+        rules = shd.donn_rules()
+        plane = ("layers", "field_h", "field_w")
+        dev = deployed.device
+        block = lambda t, spec: shd.local_block(  # noqa: E731
+            torch.as_tensor(t), spec, mesh).to(dev).contiguous()
+        self.deployed = deployed
+        self.frozen = tuple(
+            block(f, shd.operand_pspec(tuple(f.shape), plane, mesh, rules))
+            for f in deployed.frozen)
+        self.tfs = tuple(
+            block(t, shd.operand_pspec(t.shape, plane, mesh, rules))
+            for t in _plan_tf_stacks(deployed.plan))
+        masks = deployed.detector.masks_t
+        self.masks = block(masks, shd.operand_pspec(
+            tuple(masks.shape), ("classes", "field_h", "field_w"), mesh,
+            rules))
+        self.mesh = mesh
+        self.field = shd.rules_pspec((None, "field_h", "field_w"), rules,
+                                     mesh)
+        self.group = mesh.get_group("model")
+        self.spectral = local_spectral_pair(self.group,
+                                            shd.mesh_shape(mesh)["model"])
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dep, plan = self.deployed, self.deployed.plan
+        u = shd.local_block(data_to_cplex(x, dep.in_n) * dep.source,
+                            self.field, self.mesh)
+        u = plan.forward(None, u, tfs=self.tfs, spectral=self.spectral,
+                         frozen=self.frozen)
+        u = plan.propagate_final(u, tfs=self.tfs, spectral=self.spectral)
+        part = torch.einsum("...hw,chw->...c", df.intensity(u), self.masks)
+        return all_reduce_sum(part, self.group)
 
 
 def expected_request_shape(deployed: DeployedDONN) -> tuple:

@@ -17,7 +17,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.convert import lm_params_from_jax, params_from_jax  # noqa: E402
+from repro_torch.convert import (  # noqa: E402
+    donn_state_from_jax, lm_params_from_jax, params_from_jax,
+)
+from repro_torch.optim import AdamW  # noqa: E402
+from repro_torch.runtime.donn_steps import make_donn_train_step  # noqa: E402
 from repro_torch.core.config import DONNConfig, LayerSpec  # noqa: E402
 from repro_torch.core.models import DONN, build_model  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -57,10 +61,12 @@ def _imports(path: pathlib.Path):
             yield node.lineno, str(node.args[0].value)
 
 
-# the one script that runs the JAX package: it writes the JAX-side fixture
-# the port is held against (tests/fixtures/jax_artifact_n64); the port, the
-# chip smoke and every other script never import it
+# the scripts that run the JAX package: one writes the JAX-side fixture
+# the port is held against (tests/fixtures/jax_artifact_n64), one measures
+# the reference's own sharded-vs-single-device gap; the port, the chip
+# smoke and every other script never import it
 JAX_FIXTURE_WRITER = REPO / "scripts" / "write_jax_artifact_fixture.py"
+JAX_SCRIPTS = (JAX_FIXTURE_WRITER, REPO / "scripts" / "reference_mesh_gap.py")
 
 
 def _jax_imports(files) -> list:
@@ -78,15 +84,16 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     files.extend(f for f in sorted((REPO / "scripts").glob("*.py"))
-                 if f != JAX_FIXTURE_WRITER)
+                 if f not in JAX_SCRIPTS)
     assert len(files) > 15
     bad = _jax_imports(files)
     assert not bad, "\n".join(bad)
 
 
 def test_the_fixture_writer_is_the_script_that_runs_the_reference():
-    """The exemption above names a script that exists and runs JAX."""
-    assert _jax_imports([JAX_FIXTURE_WRITER])
+    """The exemptions above name scripts that exist and run JAX."""
+    for f in JAX_SCRIPTS:
+        assert _jax_imports([f]), f
 
 
 def _entry_points():
@@ -103,12 +110,17 @@ def _entry_points():
         "serve": lambda: serve.main(["--arch", "qwen1.5-4b", "--smoke",
                                      "--slots", "2", "--requests", "2",
                                      "--prompt-len", "3", "--max-new", "2"]),
+        "donn_state_from_jax": lambda: donn_state_from_jax({
+            "params": {"phase": {}}, "mu": {"phase": {}},
+            "nu": {"phase": {}}, "step": np.zeros((), np.int32)}),
+        "make_donn_train_step": lambda: make_donn_train_step(CFG, AdamW()),
     }
 
 
 @pytest.mark.parametrize("name", ["build_model", "DONN", "params_from_jax",
                                   "serve_donn", "lm_params_from_jax",
-                                  "serve"])
+                                  "serve", "donn_state_from_jax",
+                                  "make_donn_train_step"])
 def test_entry_points_default_to_the_card(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():

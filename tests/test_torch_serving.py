@@ -254,15 +254,32 @@ def test_engine_pads_and_chunks(qat_pair):
     assert eng.infer(x[0]).shape == (1, 10)
 
 
-def test_engine_validates_arguments(qat_pair):
+def test_engine_validates_arguments(qat_pair, monkeypatch):
     tm, tp, _, _ = qat_pair[False]
     dep = freeze(tm, tp, device=CPU)
     with pytest.raises(ValueError, match="positive"):
         InferenceEngine(dep, buckets=(0, 2), device=CPU)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # more ranks than the world holds (no process group: one rank)
+    with pytest.raises(ValueError, match="have 1"):
         InferenceEngine(dep, mesh_devices=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(ValueError, match="have 1"):
         InferenceEngine(dep, model_devices=2, device=CPU)
+    # what row-sharded serving refuses, as the reference does; the
+    # refusals come before any process group is joined
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    tmk, tpk, _, _ = qat_pair[True]
+    with pytest.raises(NotImplementedError, match="full planes"):
+        InferenceEngine(freeze(tmk, tpk, device=CPU), model_devices=2,
+                        device=CPU)
+    with pytest.raises(NotImplementedError, match="rfft_first"):
+        InferenceEngine(freeze(tm, tp, rfft_first=True, device=CPU),
+                        model_devices=2, device=CPU)
+    seg = build_model(DONNConfig(name="seg", n=32, depth=2, distance=0.05,
+                                 segmentation=True, skip_from=0),
+                      device=CPU)
+    with pytest.raises(NotImplementedError, match="classify"):
+        InferenceEngine(freeze(seg, seg.init(torch.Generator()), device=CPU),
+                        model_devices=2, device=CPU)
     with pytest.raises(ValueError, match="plane_dtype"):
         freeze(tm, tp, plane_dtype="float16", device=CPU)
     with pytest.raises(TypeError, match="cannot freeze"):
@@ -352,7 +369,7 @@ def test_serve_cli_on_cpu(capsys):
     assert "12/12 requests served" in capsys.readouterr().out
 
 
-LATER_SLICES = ("multi-device",)  # slices of the port still to come
+LATER_SLICES = ()  # slices of the port still to come: none
 
 
 @pytest.mark.parametrize("flags,match", [
@@ -362,9 +379,9 @@ LATER_SLICES = ("multi-device",)  # slices of the port still to come
     (["--replicas", "2"], "fleet"),
 ])
 def test_serve_cli_refuses_later_slices(flags, match, tmp_path):
-    """Each flag names the slice it belongs to: the CLI refuses exactly
-    the flags of slices still to come (``--mesh-devices``), and the flags
-    of the persistence and fleet slices, which have landed, serve."""
+    """Each flag names the slice it belongs to: the CLI would refuse the
+    flags of slices still to come, and every slice has landed, so each
+    flag serves (``--mesh-devices 2`` on two gloo ranks of the CPU)."""
     flags = [str(tmp_path / f) if f == "dir" else f for f in flags]
     base = ["--n", "32", "--depth", "2", "--device", "cpu", "--requests",
             "4"]

@@ -100,7 +100,30 @@ script exits non-zero without the final line:
    the same way and K7 is held against ``ssm._selective_scan`` on layer
    0's mixer tensors (dt, x, B, C, A) of a batch-8, S=2048 prefill.  Each
    model is freed before the next is built.
-10. persistence — artifacts, supervision, the fleet and rollback on the
+10. lm_train — LM training on the card, no kernel on its path (as in the
+   reference): ``repro_torch.launch.train.main`` trains qwen1.5-4b at full
+   width and depth (40 layers, d_model 2560, vocab 151936) and
+   falcon-mamba-7b at full width, depth 16 of 64 (its f32 state at 64
+   layers would be 116 GB) for 8 steps at batch 8, seq 128, lr 1e-3,
+   warmup 2, bf16 matmuls, f32 masters and moments: finite, falling
+   losses, steps/s and tokens/s (median of the steps after the second),
+   the peak memory of step 3 (``--profile``: FILE.lmtrain and
+   FILE.lmtrain_ssm, a table of step 5).  At full width, depth 2, f32,
+   batch 2, seq 16, each model on the card against a CPU copy (plain
+   torch both sides, SLICE_RTOL): ``lm_loss``, the grad norm, every leaf's
+   grad (qwen's ``bk``, zero in exact arithmetic, against the largest
+   grad), the blocked AdamW update bitwise the unblocked one, and one
+   ``make_train_step`` step at accum 1 and 2 (against the CPU copy's
+   ``loss_and_grads`` and AdamW update at accum 1, its own
+   ``make_train_step`` at accum 2: loss, grad norm; every
+   param within Adam's sign bound, 2 lr, and within SLICE_RTOL where the
+   gradient is clear of rounding noise and of AdamW's eps).  The qwen depth-2 train state (11 GB)
+   through ``AsyncCheckpointer`` and back, bitwise, timed.  The launcher's
+   control flow at glm4-9b --smoke: 10 straight steps against 5 + resume
+   5, a subprocess SIGTERM'd after step 10 (rc 143, then resumed), and the
+   examples' train 200 / resume to 250 / serve 16 requests.  K1-K7
+   launches across the phase: zero, asserted.
+11. persistence — artifacts, supervision, the fleet and rollback on the
    card, every hold raising: ``donn-mnist-5l`` (f32, bf16, int8, f32 with
    ``rfft_first``), ``donn-rgb``, ``donn-seg`` and ``hybrid-slm-printed``
    are saved and cold-started with ``load_deployed`` (no device: the
@@ -123,7 +146,7 @@ script exits non-zero without the final line:
    card and the CPU copy, equal).  Its K1-K3 launches are held against
    what its engines' forwards and training steps owe.
 
-11. mesh — the multi-device slice, after every earlier phase: the
+12. mesh — the multi-device slice, after every earlier phase: the
    card's machine has one card and NCCL takes one rank a card, so the
    k > 1 paths run as k gloo ranks sharing it (``collectives.spawn_ranks``,
    2 ranks, then 4; collectives staged through the host).  Data parallel
@@ -157,16 +180,17 @@ to the bit and its batch row 1 alone equals the row inside its batch.
 
 Then one JSON line lists every kernel with its launches on the main path
 (DONN serving + training, the families, the design flow, LM serving,
-persistence, the mesh's ranks; the last two also under
-``persistence_launches`` and ``mesh_launches``) and in the LM
-holds apart, its launches per training step on each engine,
+persistence, the mesh's ranks, LM training; the last three also under
+``persistence_launches``, ``mesh_launches`` and ``lm_train_launches``)
+and in the LM holds apart, its launches per training step on each engine,
 per family, per design part and per LM window, error and times, and the
 last line is the device record.
 ``--profile FILE`` adds ``torch.profiler`` tables of PROFILE_BATCHES
 bucket-32 batches and of PROFILE_CHUNKS 8-step training chunks, with the
 device's busy time and idle share, printed and written to FILE (the
 training table to FILE.train, RGB and segmentation serving to FILE.rgb
-and FILE.seg, an emulate_batch call of 8 candidates to FILE.design).
+and FILE.seg, an emulate_batch call of 8 candidates to FILE.design, an
+LM training step to FILE.lmtrain and FILE.lmtrain_ssm).
 """
 from __future__ import annotations
 
@@ -178,6 +202,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -191,6 +216,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.checkpoint import AsyncCheckpointer  # noqa: E402
+from repro_torch.checkpoint import latest_step as ckpt_latest  # noqa: E402
 from repro_torch.checkpoint import restore as ckpt_restore  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.donn import HYBRID_SLM_PRINTED  # noqa: E402
@@ -209,6 +235,7 @@ from repro_torch.data.synthetic import (  # noqa: E402
 )
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve, serve_donn  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import get_config as lm_config  # noqa: E402
 from repro_torch.models import lm, ssm  # noqa: E402
@@ -216,10 +243,11 @@ from repro_torch.models.layers import (  # noqa: E402
     apply_norm, apply_rotary, embed_tokens, rope_angles,
 )
 from repro_torch.nn.module import init_params  # noqa: E402
-from repro_torch.optim import AdamW  # noqa: E402
+from repro_torch.optim import AdamW, warmup_cosine  # noqa: E402
 from repro_torch.runtime import donn_steps as ds  # noqa: E402
 from repro_torch.runtime import pencil_fft  # noqa: E402
 from repro_torch.runtime import sharding as shd  # noqa: E402
+from repro_torch.runtime import steps as lm_steps  # noqa: E402
 from repro_torch.runtime.collectives import spawn_ranks  # noqa: E402
 from repro_torch.runtime.fleet import FleetRouter  # noqa: E402
 from repro_torch.runtime.inference import (  # noqa: E402
@@ -234,7 +262,7 @@ from repro_torch.testing import (  # noqa: E402
     poison_batches,
 )
 from repro_torch.tree import (  # noqa: E402
-    tree_leaves, tree_map, tree_unflatten,
+    tree_leaves, tree_map, tree_paths, tree_unflatten,
 )
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and f32 rate outside the tensor
@@ -1164,6 +1192,17 @@ def phase_slice(dev, smi: str, profile) -> dict:
     return launches
 
 
+def _table_and_busy(prof, rows: int) -> tuple:
+    """A profile's table (by device time) and the device's busy time in
+    us: the self time of device-side events (kernels and copies), which
+    the host-side ops' totals would count twice."""
+    events = prof.key_averages()
+    busy_us = sum(getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0) for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return events.table(sort_by="cuda_time_total", row_limit=rows), busy_us
+
+
 def _profile(run, reps: int, units: int, unit: str, path: str,
              unprofiled_us: float) -> None:
     """torch.profiler table of ``reps`` calls of ``run`` (each doing
@@ -1179,13 +1218,7 @@ def _profile(run, reps: int, units: int, unit: str, path: str,
         for _ in range(reps):
             run()
         wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    table = events.table(sort_by="cuda_time_total", row_limit=25)
-    # device busy time: the self time of device-side events (kernels and
-    # copies), which the host-side ops' totals would count twice
-    busy_us = sum(getattr(e, "self_device_time_total", None)
-                  or getattr(e, "self_cuda_time_total", 0) for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    table, busy_us = _table_and_busy(prof, 25)
     n = reps * units
     per_us = busy_us / n
     wall_us = wall / n * 1e6
@@ -2488,6 +2521,442 @@ def phase_lm(dev, smi: str, profile) -> dict:
 
 
 # --------------------------------------------------------------------------
+# lm_train: LM training through the launcher at full width, the holds of
+# its pieces against a CPU copy, its control flow, a full-width checkpoint
+# --------------------------------------------------------------------------
+LM_TRAIN_STEPS = 8  # launcher steps of each full-width run
+LM_TRAIN_FLAGS = ["--batch", "8", "--seq", "128", "--lr", "1e-3",
+                  "--warmup", "2", "--log-every", "1", "--device", "cuda"]
+LM_TRAIN_TOKENS = 8 * 128  # tokens a step
+LM_TRAIN_SSM_DEPTH = 16  # falcon-mamba-7b's 64 layers need 116 GB of f32
+#                          state (16 B a parameter); 16 layers need 35 GB
+LM_PEAK_STEP, LM_PROFILE_STEP = 3, 5  # launcher calls read / profiled
+LM_TRAIN_HOLD = (2, 2, 16)  # depth, batch, seq of the card-vs-CPU holds
+# d/dbk is 0 in exact arithmetic (softmax ignores a shift shared by every
+# key): its gradient is rounding noise, held against the largest gradient
+ZERO_GRAD_LEAVES = ("['bk']",)
+# one step's params: entries whose gradient is within STEP_NOISE of its
+# leaf's largest may differ in sign between the card and the CPU (the
+# grads agree to 3.4e-6 of the max at qwen1.5-4b, PR 20); below
+# STEP_EPS_MARGIN * eps AdamW's update amplifies a gradient's rounding
+STEP_NOISE, STEP_EPS_MARGIN = 1e-2, 100.0
+LAUNCHER_BASE = ["--arch", "glm4-9b", "--smoke", "--batch", "4", "--seq",
+                 "64", "--lr", "1e-2", "--warmup", "5", "--log-every", "5",
+                 "--device", "cuda"]  # the reference's tests/test_launchers.py
+SIGTERM_WAIT_S = 240.0  # for the signalled run's step-10 line
+
+
+@contextlib.contextmanager
+def _launcher_steps(on_step, cfg=None):
+    """Inside, the launcher's step runs through ``on_step(k, run)`` (k the
+    call number, ``run()`` the step) and ``get_config`` gives ``cfg``."""
+    real, real_cfg = lm_steps.compile_train_step, lm_train.get_config
+
+    def compile_train_step(*a, **kw):
+        fn, s_place, b_place, sspecs = real(*a, **kw)
+        calls = iter(range(10 ** 9))
+
+        def step(state, batch):
+            return on_step(next(calls), lambda: fn(state, batch))
+
+        return step, s_place, b_place, sspecs
+
+    lm_steps.compile_train_step = compile_train_step
+    if cfg is not None:
+        lm_train.get_config = lambda arch, smoke=False: cfg
+    try:
+        yield
+    finally:
+        lm_steps.compile_train_step = real
+        lm_train.get_config = real_cfg
+
+
+def _profile_once(run, path: str):
+    """torch.profiler table of one ``run()`` with its device busy time and
+    idle share, printed and written to ``path``; returns run's result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    table, busy_us = _table_and_busy(prof, 30)
+    table += (f"\none step: device busy {busy_us:.1f} us, wall {wall_us:.1f}"
+              f" us under the profiler (idle share "
+              f"{1 - busy_us / wall_us:.1%})\n")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(table)
+    print(table)
+    return out
+
+
+def _lm_train_run(arch: str, cfg, smi: str, profile) -> dict:
+    """``lm_train.main`` at full width on the card: LM_TRAIN_STEPS steps,
+    the peak memory of step LM_PEAK_STEP, a profile of step
+    LM_PROFILE_STEP under ``--profile``; asserts finite, falling losses."""
+    peak = {}
+
+    def on_step(k, run):
+        if k == LM_PEAK_STEP:
+            torch.cuda.synchronize()
+            peak["before"] = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = run()
+            torch.cuda.synchronize()
+            peak["step"] = torch.cuda.max_memory_allocated()
+            return out
+        if k == LM_PROFILE_STEP and profile:
+            tag = "lmtrain" if cfg.family == "dense" else "lmtrain_ssm"
+            return _profile_once(run, f"{profile}.{tag}")
+        return run()
+
+    out = os.path.join(tempfile.mkdtemp(prefix="lm_train_"), "m.json")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _launcher_steps(on_step, cfg):
+        losses = lm_train.main(["--arch", arch, "--steps",
+                                str(LM_TRAIN_STEPS), "--metrics-out", out]
+                               + LM_TRAIN_FLAGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run_peak = torch.cuda.max_memory_allocated()
+    m = json.load(open(out))
+    shutil.rmtree(os.path.dirname(out))
+    timed = [t for k, t in enumerate(m["step_seconds"])
+             if k >= 2 and k != LM_PROFILE_STEP]
+    sec = float(np.median(timed))
+    n_params = sum(math.prod(s.shape) for s in tree_leaves(
+        lm.param_specs(cfg)))
+    print(f"[lm_train] {arch} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {n_params / 1e9:.3f}B params, "
+          f"{cfg.dtype} matmuls, f32 masters and moments), batch 8 x seq "
+          f"128, lr 1e-3 warmup 2: losses "
+          f"{[round(v, 4) for v in losses]}; steps/s {1 / sec:.3f} "
+          f"(median of steps {[round(t, 4) for t in timed]} s), tokens/s "
+          f"{LM_TRAIN_TOKENS / sec:.1f}; peak memory of step {LM_PEAK_STEP} "
+          f"{peak['step'] / 1e9:.2f} GB (allocated before it "
+          f"{peak['before'] / 1e9:.2f} GB), of the run {run_peak / 1e9:.2f} "
+          f"GB, of {torch.cuda.get_device_properties(0).total_memory / 1e9:.2f}"
+          f" GB; run {wall:.1f}s ({smi})")
+    if not (len(losses) == LM_TRAIN_STEPS and all(map(math.isfinite, losses))
+            and np.mean(losses[-3:]) < np.mean(losses[:3])):
+        raise AssertionError(f"{arch}: losses {losses} not finite and "
+                             "falling")
+    torch.cuda.empty_cache()
+    return {"steps_per_s": 1 / sec, "tokens_per_s": LM_TRAIN_TOKENS / sec,
+            "peak_gb": peak["step"] / 1e9, "losses": losses}
+
+
+def _hold_lm_grads(what: str, got, want) -> None:
+    """Every leaf's gradient on the card within SLICE_RTOL of its max on
+    the CPU copy (the zero-grad leaves within SLICE_RTOL of the largest
+    gradient); compared on the card."""
+    dev = tree_leaves(got)[0].device
+    top = max(float(w.abs().max()) for w in tree_leaves(want))
+    rels = {}
+    for p, g, w in zip(tree_paths(want), tree_leaves(got), tree_leaves(want)):
+        w = w.to(dev)
+        scale = top if p.endswith(ZERO_GRAD_LEAVES) else float(w.abs().max())
+        rels[p] = float((g - w).abs().max()) / (scale or 1.0)
+    worst = max(rels, key=rels.get)
+    print(f"[lm_train] {what}: {len(rels)} leaves' grads within "
+          f"{rels[worst]:.3e} of their max (worst {worst}; "
+          f"{', '.join(ZERO_GRAD_LEAVES)} against the largest gradient, "
+          f"{top:.3e}), tol {SLICE_RTOL:g}")
+    if rels[worst] > SLICE_RTOL:
+        raise AssertionError(f"{what}: {worst} grad rel {rels[worst]:.3e}")
+
+
+def _hold_lm_step_params(what: str, got, want, grads, gnorm: float,
+                         lr0: float, eps: float) -> None:
+    """Params after one AdamW step on the card against the CPU copy's.
+
+    AdamW's first step moves an entry by lr0 * g / (|g| + eps) (g the
+    clipped gradient).  Where the card's and the CPU's gradients differ in
+    sign, the two runs part by up to 2 lr0; near |g| = eps the update
+    amplifies a relative gradient difference.  So every entry is held
+    within 2 lr0 + SLICE_RTOL of its leaf's max, and the entries clear of
+    both (|g| above STEP_NOISE of its leaf's largest gradient, or of the
+    largest for the zero-grad leaves, and above STEP_EPS_MARGIN * eps)
+    within SLICE_RTOL of the leaf's max.  Compared on the card."""
+    dev = tree_leaves(got)[0].device
+    clip = min(1.0, 1.0 / (gnorm + 1e-12))
+    top = max(float(g.abs().max()) for g in tree_leaves(grads))
+    worst, held, parted, n = 0.0, 0, 0, 0
+    for p, a, w, g in zip(tree_paths(want), tree_leaves(got),
+                          tree_leaves(want), tree_leaves(grads)):
+        w, g = w.to(dev), g.to(dev)
+        d = (a - w).abs()
+        scale = float(w.abs().max()) or 1.0
+        gmax = top if p.endswith(ZERO_GRAD_LEAVES) else float(g.abs().max())
+        clear = ((g.abs() > STEP_NOISE * gmax)
+                 & (g.abs() * clip > STEP_EPS_MARGIN * eps))
+        held += int(clear.sum())
+        parted += int((d > SLICE_RTOL * scale).sum())
+        n += d.numel()
+        if float(d.max()) > 2 * lr0 * 1.01 + SLICE_RTOL * scale:
+            raise AssertionError(f"{what}: {p} differs by {float(d.max()):.3e}"
+                                 f" > 2 lr0 = {2 * lr0:.3e}")
+        if bool(clear.any()):
+            rel = float(d[clear].max()) / scale
+            worst = max(worst, rel)
+            if rel > SLICE_RTOL:
+                raise AssertionError(f"{what}: {p}: rel {rel:.3e} where the "
+                                     "gradient is clear of noise and eps")
+        del w, g, d, clear
+    print(f"[lm_train] {what}: every entry within 2 lr0 = {2 * lr0:.3e}; "
+          f"the {held} of {n} entries whose gradient is clear of noise and "
+          f"eps within {worst:.3e} of their leaf's max (tol {SLICE_RTOL:g}); "
+          f"{parted} entries past {SLICE_RTOL:g} in all")
+
+
+def _lm_train_holds(dev, arch: str, keep_state: bool):
+    """Full width, depth 2, f32, batch 2, seq 16 on the card against a CPU
+    copy: lm_loss, the grad norm and every leaf's grad; the blocked AdamW
+    update bitwise the unblocked one on the card; one make_train_step step
+    at accum 1 and 2.  Returns the card's train state after the accum-2
+    step if ``keep_state``."""
+    t0 = time.perf_counter()
+    depth, b, s = LM_TRAIN_HOLD
+    cfg = dataclasses.replace(lm_config(arch), n_layers=depth,
+                              dtype=torch.float32)
+    sched = warmup_cosine(3e-4, 20, 100)  # the launcher's defaults
+    opt = AdamW(lr=sched, weight_decay=0.01, grad_clip_norm=1.0)
+    lr0 = float(sched(0))
+    state = lm_steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(2), opt)
+    cpu = tree_map(lambda t: t.to("cpu", copy=True), state)
+    rng = np.random.default_rng(7)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    on_dev = tree_map(lambda t: t.to(dev), batch)
+    tag = f"{arch} f32 depth {depth}, batch {b}, seq {s}: card vs CPU"
+
+    def loss_fn(p, bb):
+        return lm.lm_loss(p, bb, cfg)
+
+    got_l, got_g = lm_steps.loss_and_grads(loss_fn, state["params"], on_dev)
+    want_l, want_g = lm_steps.loss_and_grads(loss_fn, cpu["params"], batch)
+    rel = abs(float(got_l) - float(want_l)) / abs(float(want_l))
+    gn, wn = (float(lm_steps._global_norm(g)) for g in (got_g, want_g))
+    print(f"[lm_train] {tag}: lm_loss {float(got_l):.6f} vs "
+          f"{float(want_l):.6f} (rel {rel:.3e}); grad norm {gn:.6f} vs "
+          f"{wn:.6f} (rel {abs(gn - wn) / wn:.3e}), tol {SLICE_RTOL:g}")
+    if rel > SLICE_RTOL or abs(gn - wn) > SLICE_RTOL * wn:
+        raise AssertionError(f"{tag}: loss or grad norm")
+    _hold_lm_grads(tag, got_g, want_g)
+
+    # the blocked update (leaves above scan_threshold) against one pass
+    whole = dataclasses.replace(opt, scan_threshold=1 << 62)
+    mom = lm_steps.AdamWState(state["mu"], state["nu"])
+    a = opt.update(got_g, mom, state["params"], state["step"])
+    w = whole.update(got_g, mom, state["params"], state["step"])
+    blocked = [p for p, t in zip(tree_paths(state["params"]),
+                                 tree_leaves(state["params"]))
+               if t.numel() > opt.scan_threshold]
+    same = all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                 tree_leaves(w)))
+    print(f"[lm_train] {arch} depth {depth}: the blocked AdamW update "
+          f"({len(blocked)} leaves above scan_threshold "
+          f"{opt.scan_threshold}: {blocked}) bitwise the unblocked one on "
+          f"the card: {same}")
+    if not same or not blocked:
+        raise AssertionError(f"{arch}: blocked AdamW differs from unblocked")
+    del a, w, got_g, mom
+
+    # one make_train_step step on the card; on the CPU copy, at accum 1,
+    # the step's own pieces (loss_and_grads above, then AdamW), at accum 2
+    # make_train_step itself; the accum-2 steps consume the states
+    ref1, _ = opt.update(want_g, lm_steps.AdamWState(cpu["mu"], cpu["nu"]),
+                         cpu["params"], cpu["step"])
+    refs = {1: ({"loss": want_l, "grad_norm": wn}, ref1)}
+    for accum in (1, 2):
+        fn = lm_steps.make_train_step(cfg, opt, accum_steps=accum)
+        dev_s, dev_m = fn(state if accum == 2 else tree_map(torch.clone,
+                                                             state), on_dev)
+        if accum == 2:
+            cpu_s, cpu_m = fn(cpu, batch)
+            refs[2] = (cpu_m, cpu_s["params"])
+        want_m, want_p = refs.pop(accum)
+        what = f"{tag}, one make_train_step step at accum {accum}"
+        for k in ("loss", "grad_norm"):
+            g, w_ = float(dev_m[k]), float(want_m[k])
+            print(f"[lm_train] {what}: {k} {g:.6f} vs {w_:.6f} (rel "
+                  f"{abs(g - w_) / w_:.3e}, tol {SLICE_RTOL:g})")
+            if abs(g - w_) > SLICE_RTOL * w_:
+                raise AssertionError(f"{what}: {k}")
+        _hold_lm_step_params(what, dev_s["params"], want_p, want_g,
+                             float(want_m["grad_norm"]), lr0, opt.eps)
+        del want_p
+    del cpu, cpu_s, want_g
+    print(f"[lm_train] {arch} holds: {time.perf_counter() - t0:.1f}s")
+    return dev_s if keep_state else None
+
+
+def _lm_checkpoint(dev, state, smi: str) -> None:
+    """The depth-2 train state through the launcher's AsyncCheckpointer
+    into a temporary directory, restored bitwise, then deleted."""
+    gb = sum(t.numel() * t.element_size() for t in tree_leaves(state)) / 1e9
+    tmp = tempfile.mkdtemp(prefix="lm_ckpt_")
+    try:
+        saver = AsyncCheckpointer(tmp, keep=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saver.save(1, state)
+        t_ret = time.perf_counter() - t0
+        saver.wait()
+        t_commit = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ckpt_restore(tmp, 1, state, device=dev)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        same = all(torch.equal(x, y) for x, y in zip(tree_leaves(back),
+                                                     tree_leaves(state)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[lm_train] checkpoint of the qwen1.5-4b depth-2 train state "
+          f"(params, mu, nu, step): {gb:.2f} GB; save returned in "
+          f"{t_ret:.2f}s, committed in {t_commit:.2f}s, restored in "
+          f"{t_restore:.2f}s, bitwise {same} ({smi})")
+    if not same:
+        raise AssertionError("checkpoint restore is not bitwise")
+
+
+def _launcher_main(args) -> tuple:
+    """``lm_train.main(args)`` with its stdout echoed and returned."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        losses = lm_train.main(args)
+    print(buf.getvalue(), end="")
+    return losses, buf.getvalue()
+
+
+def _lm_control_flow(smi: str) -> None:
+    """The launcher's control flow on the card at glm4-9b --smoke: 10
+    straight steps against 5 + resume 5, SIGTERM -> 143 -> resume, and the
+    examples' train 200 / resume to 250 / serve flow."""
+    tmp = tempfile.mkdtemp(prefix="lm_flow_")
+    t0 = time.perf_counter()
+    try:
+        straight, _ = _launcher_main(LAUNCHER_BASE + ["--steps", "10"])
+        ck = os.path.join(tmp, "ck")
+        first, _ = _launcher_main(LAUNCHER_BASE + [
+            "--steps", "5", "--ckpt-dir", ck, "--ckpt-every", "5"])
+        second, out = _launcher_main(LAUNCHER_BASE + [
+            "--steps", "10", "--ckpt-dir", ck, "--ckpt-every", "100"])
+        rel = [abs(a - b) / abs(b) for a, b in zip(first + second, straight)]
+        bitwise = first + second == straight
+        print(f"[lm_train] glm4-9b smoke: 10 straight steps vs 5 + resume 5: "
+              f"rel {max(rel[:5]):.3e} before the resume (tol 1e-5), "
+              f"{max(rel[5:]):.3e} after (tol 1e-3); bitwise {bitwise}")
+        if ("resuming from step 5" not in out or max(rel[:5]) > 1e-5
+                or max(rel[5:]) > 1e-3):
+            raise AssertionError("resume does not continue the run")
+
+        ck = os.path.join(tmp, "ck_sig")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train"]
+            + LAUNCHER_BASE + ["--steps", "100000", "--ckpt-dir", ck,
+                               "--ckpt-every", "3"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+        lines: list = []
+        reader = threading.Thread(
+            target=lambda: lines.extend(iter(proc.stdout.readline, "")),
+            daemon=True)
+        reader.start()
+        try:
+            deadline = time.monotonic() + SIGTERM_WAIT_S
+            while not any("step    10" in ln for ln in lines):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("the signalled run printed no step "
+                                         "10:\n" + "".join(lines)[-2000:])
+                time.sleep(0.05)
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        reader.join(timeout=10)
+        last = ckpt_latest(ck)
+        _, out = _launcher_main(LAUNCHER_BASE + [
+            "--steps", str((last or 0) + 3), "--ckpt-dir", ck,
+            "--ckpt-every", "100"])
+        print(f"[lm_train] SIGTERM mid-run: rc {rc}, LATEST step {last}; "
+              f"resume printed 'resuming from step {last}': "
+              f"{f'resuming from step {last}' in out}; the resume and "
+              f"SIGTERM checks {time.perf_counter() - t0:.1f}s")
+        if rc != 143 or last is None or last < 3 or (
+                f"resuming from step {last}" not in out):
+            raise AssertionError("SIGTERM -> 143 -> resume failed")
+
+        ck = os.path.join(tmp, "ck_example")
+        flags = ["--arch", "granite-8b", "--smoke", "--batch", "8", "--seq",
+                 "128", "--lr", "3e-3", "--warmup", "20", "--ckpt-dir", ck,
+                 "--ckpt-every", "50", "--log-every", "25", "--device",
+                 "cuda"]
+        t0 = time.perf_counter()
+        trained, _ = _launcher_main(flags + ["--steps", "200"])
+        resumed, out = _launcher_main(flags + ["--steps", "250"])
+        served = serve.main(["--arch", "granite-8b", "--smoke", "--slots",
+                             "8", "--requests", "16", "--prompt-len", "8",
+                             "--max-new", "16", "--cache-len", "128",
+                             "--device", "cuda"])
+        print(f"[lm_train] examples/lm_train_and_serve.py flow (granite-8b "
+              f"smoke): 200 steps {trained[0]:.4f} -> {trained[-1]:.4f}, "
+              f"resumed to 250 -> {resumed[-1]:.4f}, served {served} tokens; "
+              f"{time.perf_counter() - t0:.1f}s ({smi})")
+        if (len(trained) != 200 or len(resumed) != 50 or served != 16 * 16
+                or "resuming from step 200" not in out
+                or not resumed[-1] < trained[0]):
+            raise AssertionError("the train -> resume -> serve flow failed")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_lm_train(dev, smi: str, profile) -> dict:
+    """LM training on the card: qwen1.5-4b at full width and depth and
+    falcon-mamba-7b at full width, depth 16, through the launcher; the
+    holds against CPU copies; the control flow; a full-width checkpoint.
+    Returns the phase's kernel launches (the path launches none)."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    runs = {"qwen1.5-4b": _lm_train_run("qwen1.5-4b",
+                                        lm_config("qwen1.5-4b"), smi,
+                                        profile)}
+    ssm_cfg = dataclasses.replace(lm_config("falcon-mamba-7b"),
+                                  n_layers=LM_TRAIN_SSM_DEPTH)
+    runs["falcon-mamba-7b"] = _lm_train_run("falcon-mamba-7b", ssm_cfg, smi,
+                                            profile)
+    state = _lm_train_holds(dev, "qwen1.5-4b", keep_state=True)
+    _lm_checkpoint(dev, state, smi)
+    _free(state)
+    torch.cuda.empty_cache()
+    _lm_train_holds(dev, "falcon-mamba-7b", keep_state=False)
+    torch.cuda.empty_cache()
+    _lm_control_flow(smi)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"[lm_train] kernel launches across the phase: {launches} (the "
+          f"reference's LM training path reaches no Pallas kernel either); "
+          f"phase {time.perf_counter() - t_phase:.1f}s")
+    if any(launches.values()):
+        raise AssertionError(f"the LM training path launched {launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # persistence: artifacts, the JAX-written fixture, corruption, supervision,
 # the fleet, training rollback, frozen-plane faults
 # --------------------------------------------------------------------------
@@ -3457,8 +3926,10 @@ def main(argv=None) -> int:
                     help="write torch.profiler tables of the serving path "
                          "(FILE), a training chunk (FILE.train), RGB and "
                          "segmentation serving (FILE.rgb, FILE.seg), an "
-                         "emulate_batch call of 8 candidates (FILE.design) "
-                         "and a qwen1.5-4b decode step at 8 slots (FILE.lm)")
+                         "emulate_batch call of 8 candidates (FILE.design), "
+                         "a qwen1.5-4b decode step at 8 slots (FILE.lm) and "
+                         "one LM training step of qwen1.5-4b and "
+                         "falcon-mamba-7b (FILE.lmtrain, FILE.lmtrain_ssm)")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     smi = phase_device()
@@ -3473,6 +3944,7 @@ def main(argv=None) -> int:
     families = phase_families(dev, smi, args.profile)
     design = phase_design(dev, smi, args.profile)
     lm_windows = phase_lm(dev, smi, args.profile)
+    lm_training = phase_lm_train(dev, smi, args.profile)
     persistence = phase_persistence(dev, smi)
     mesh = phase_mesh(dev, smi)
     kernels = []
@@ -3485,14 +3957,15 @@ def main(argv=None) -> int:
             "replaces": replaces,
             # the main path: DONN serving and training, the advanced
             # families, the design flow, LM serving, persistence and the
-            # fleet, the mesh's ranks; the LM holds (K6 on q/k, K7 on the
-            # mixer tensors) apart
+            # fleet, the mesh's ranks, LM training (none); the LM holds
+            # (K6 on q/k, K7 on the mixer tensors) apart
             "launches": (launches[name] + train["counted"][name]
                          + sum(f[name] for f in families.values())
                          + sum(d[name] for d in design.values())
                          + sum(v for w, v in lm_launches.items()
                                if w.startswith("lm_serve"))
-                         + persistence[name] + mesh[name]),
+                         + persistence[name] + mesh[name]
+                         + lm_training[name]),
             "hold_launches": sum(v for w, v in lm_launches.items()
                                  if w.startswith("lm_hold")),
             "serve_launches": launches[name],
@@ -3503,6 +3976,7 @@ def main(argv=None) -> int:
             "lm_launches": lm_launches,
             "persistence_launches": persistence[name],
             "mesh_launches": mesh[name],
+            "lm_train_launches": lm_training[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

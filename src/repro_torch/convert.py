@@ -6,8 +6,11 @@ dicts of tensors on ``device``: ``params_from_jax`` a DONN's ``{"phase":
 {"layer_i": tensor}}``, ``donn_state_from_jax`` a DONN train state
 (``{"params", "mu", "nu", "step"}``, ``repro.runtime.donn_steps``),
 ``lm_params_from_jax`` an LM's ``{"embed", "final_norm", "blocks"}`` tree
-(stacked "layers" axis kept).  They only walk dicts: nothing of JAX is
-imported.
+(stacked "layers" axis kept), ``lm_train_state_from_jax`` an LM train
+state (``repro.runtime.steps.init_train_state``; bf16 moments stay bf16).
+They only walk dicts: nothing of JAX is imported (a bf16 array arrives
+as numpy's ``bfloat16`` extension type and is read as its raw 2-byte
+words).
 """
 from __future__ import annotations
 
@@ -24,6 +27,20 @@ def _float_tree(tree, dev):
     arr = np.asarray(tree)
     if arr.dtype.kind != "f":
         raise TypeError(f"expected floating parameters, got {arr.dtype}")
+    return torch.from_numpy(np.array(arr, np.float32)).to(dev)
+
+
+def _moment_tree(tree, dev):
+    """Nested dicts of float arrays -> tensors of the same float type
+    (f32, or bf16 from its raw words)."""
+    if isinstance(tree, dict):
+        return {k: _moment_tree(v, dev) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":  # a copy: the caller's buffer stays
+        return torch.from_numpy(np.array(arr).view(np.int16)
+                                ).view(torch.bfloat16).to(dev)
+    if arr.dtype.kind != "f":
+        raise TypeError(f"expected floating moments, got {arr.dtype}")
     return torch.from_numpy(np.array(arr, np.float32)).to(dev)
 
 
@@ -57,4 +74,21 @@ def lm_params_from_jax(tree, device=None) -> dict:
     if missing:
         raise ValueError(f"expected an LM parameter tree; missing "
                          f"{sorted(missing)}")
+    return out
+
+
+def lm_train_state_from_jax(state, device=None) -> dict:
+    """A JAX LM train state -> the port's, on ``device``: params float32,
+    AdamW moments in their own dtype (float32 or bf16), ``step`` an int32
+    scalar."""
+    missing = {"params", "mu", "nu", "step"} - set(state)
+    if missing:
+        raise ValueError(f"expected an LM train state; missing "
+                         f"{sorted(missing)}")
+    dev = resolve_device(device)
+    out = {"params": lm_params_from_jax(state["params"], dev),
+           "mu": _moment_tree(state["mu"], dev),
+           "nu": _moment_tree(state["nu"], dev)}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=dev)
     return out

@@ -3,9 +3,9 @@
 The port of ``repro.data.pipeline``:
 
 - ``Prefetcher``: a worker thread keeps a bounded queue of ready batches
-  (host-side overlap); backpressure via the queue bound.  No port driver
-  uses it yet; it is kept as the reference's API, held to it by the
-  parity tests in ``tests/test_torch_train.py``.
+  (host-side overlap); backpressure via the queue bound.  The LM training
+  launcher (``repro_torch.launch.train``) feeds its steps through one,
+  with the host-to-device copy as its transform.
 - ``device_prefetch``: keeps up to ``size`` batches in flight to the
   device, so the upload of batch k+1 overlaps the step consuming batch k
   (the feeder of the chunked training driver).
@@ -13,12 +13,16 @@ The port of ``repro.data.pipeline``:
   chunks for ``repro_torch.core.train_utils.make_train_chunk``.
 - ``bucket_for`` / ``pad_batch``: shape bucketing for serving
   (``repro_torch.runtime.inference``).
+- ``StepMonitor``: EMA step-time tracker that flags straggling steps
+  (z-score over a rolling window), as the reference's.
 """
 from __future__ import annotations
 
 import collections
+import math
 import queue
 import threading
+import time
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -142,3 +146,45 @@ def pad_batch(x: np.ndarray, bucket: int) -> np.ndarray:
     out = np.zeros((bucket,) + x.shape[1:], x.dtype)
     out[: x.shape[0]] = x
     return out
+
+
+class StepMonitor:
+    """EMA + rolling z-score step-time tracker with straggler flags."""
+
+    def __init__(self, alpha: float = 0.1, window: int = 50,
+                 z_thresh: float = 3.0):
+        self.alpha = alpha
+        self.z_thresh = z_thresh
+        self.ema: Optional[float] = None
+        self.history: collections.deque = collections.deque(maxlen=window)
+        self.stragglers: list = []
+        self._t0: Optional[float] = None
+        self.steps = 0
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self, step: Optional[int] = None) -> float:
+        dt = time.perf_counter() - self._t0
+        self.record(dt, step)
+        return dt
+
+    def record(self, dt: float, step: Optional[int] = None):
+        self.steps += 1
+        if self.ema is None:
+            self.ema = dt
+        if len(self.history) >= 5:
+            mu = sum(self.history) / len(self.history)
+            var = sum((x - mu) ** 2 for x in self.history) / len(self.history)
+            sd = math.sqrt(max(var, 1e-12))
+            if dt > mu + self.z_thresh * sd:
+                self.stragglers.append(
+                    {"step": step if step is not None else self.steps,
+                     "dt": dt, "mean": mu, "z": (dt - mu) / sd}
+                )
+        self.history.append(dt)
+        self.ema = (1 - self.alpha) * self.ema + self.alpha * dt
+
+    @property
+    def straggler_fraction(self) -> float:
+        return len(self.stragglers) / max(self.steps, 1)

@@ -1,9 +1,10 @@
 """Deterministic procedural digits (offline MNIST stand-in), numpy.
 
 A copy of ``synth_digits``, ``synth_rgb_scenes``, ``synth_seg``,
-``batch_iterator`` and their helpers from ``repro.data.synthetic``, so the
-port imports nothing of the JAX package; tests/test_torch_train.py and
-tests/test_torch_families.py pin the arrays byte-equal to the
+``synth_tokens``, ``token_batch_iterator``, ``batch_iterator`` and their
+helpers from ``repro.data.synthetic``, so the port imports nothing of the
+JAX package; tests/test_torch_train.py, tests/test_torch_families.py and
+tests/test_torch_lm_train.py pin the arrays byte-equal to the
 reference's.  Pure functions of (seed, index): restarts are bitwise
 reproducible.
 
@@ -13,6 +14,9 @@ reproducible.
 - ``synth_rgb_scenes``: 6-class RGB compositions (the RGB DONN, Fig. 12).
 - ``synth_seg``: gray scenes with binary "building" masks (the
   segmentation DONN, Fig. 13).
+- ``synth_tokens`` / ``token_batch_iterator``: a Zipfian token stream
+  with a planted bigram process, and its infinite next-token batches
+  (the LM training launcher's data; a resume replays it).
 - ``batch_iterator``: infinite shuffled batches, shardable across hosts.
 """
 from __future__ import annotations
@@ -139,6 +143,49 @@ def synth_seg(
     return xs, ms
 
 
+# ------------------------------------------------------------ lm tokens ---
+def synth_tokens(
+    num_seqs: int, seq_len: int, vocab: int, seed: int = 0,
+    bigram_frac: float = 0.75,
+) -> np.ndarray:
+    """Deterministic Zipfian token stream with a planted bigram process.
+
+    ~bigram_frac of transitions follow a fixed random bigram table (so a
+    model can visibly reduce loss in a few hundred steps); the rest are
+    Zipf-distributed noise.  Pure function of (seed, indices).
+    """
+    r = np.random.default_rng(np.random.SeedSequence([seed, 17]))
+    table = r.integers(0, vocab, size=vocab)  # planted bigram successor
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    zipf_p = (1.0 / ranks) / np.sum(1.0 / ranks)
+    out = np.empty((num_seqs, seq_len), np.int32)
+    for i in range(num_seqs):
+        rr = np.random.default_rng(np.random.SeedSequence([seed, 23, i]))
+        toks = np.empty(seq_len, np.int32)
+        toks[0] = rr.integers(0, vocab)
+        noise = rr.choice(vocab, size=seq_len, p=zipf_p)
+        use_bigram = rr.random(seq_len) < bigram_frac
+        for t in range(1, seq_len):
+            toks[t] = table[toks[t - 1]] if use_bigram[t] else noise[t]
+        out[i] = toks
+    return out
+
+
+def token_batch_iterator(batch: int, seq_len: int, vocab: int, seed: int = 0,
+                         host_id: int = 0, num_hosts: int = 1):
+    """Infinite {"tokens", "labels"} batches; labels = next-token shift."""
+    i = host_id
+    while True:
+        seqs = np.stack([
+            synth_tokens(1, seq_len + 1, vocab, seed=seed + 7919 * (i + j))[0]
+            for j in range(0, batch * num_hosts, num_hosts)
+        ])
+        yield {"tokens": seqs[:, :-1].astype(np.int32),
+               "labels": seqs[:, 1:].astype(np.int32)}
+        i += batch * num_hosts
+
+
+# ------------------------------------------------------------- iterators ---
 def batch_iterator(xs, ys, batch: int, seed: int = 0, host_id: int = 0,
                    num_hosts: int = 1):
     """Infinite shuffled batch iterator, shardable across hosts."""

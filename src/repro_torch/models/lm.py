@@ -3,21 +3,31 @@
 Parameters keep the reference's tree: per-layer blocks stacked on a
 leading "layers" axis under ``params["blocks"]``.  Where the reference
 runs ``lax.scan`` over that axis, the port runs a Python loop and indexes
-each layer's slice (a view, no copy).  Serving needs no rematerialization,
-so ``cfg.remat`` is not read here.
+each layer's slice (a view, no copy).  ``params["blocks"]`` may also be a
+list of per-layer trees: the train step (``repro_torch.runtime.steps``)
+passes views of the stacked leaves that it differentiates layer by layer,
+so no layer's gradient is scattered into a stacked-size buffer.  With
+``cfg.remat`` each block runs under ``torch.utils.checkpoint``
+(non-reentrant) whenever autograd records it, the reference's
+``jax.checkpoint`` of the scan body; serving under ``no_grad`` is not
+affected.
 
-The moe, vlm, audio and hybrid families, ``lm_loss`` and ``chunked_xent``
-come with their slices (LM training) and raise ``NotImplementedError``.
+The loss is the reference's sequence-chunked softmax cross-entropy
+(``chunked_xent``): logits are made one chunk at a time, upcast to f32,
+and recomputed in backward.  The moe, vlm, audio and hybrid families come
+with their slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.config import DENSE, PORTED_FAMILIES, LMConfig
+from repro_torch.models.config import DENSE, MOE, PORTED_FAMILIES, LMConfig
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, embed_spec, embed_tokens, mlp_spec, norm_spec,
     unembed,
@@ -50,8 +60,26 @@ def stack_specs(spec, n: int):
 
 
 def _layer(blocks, i: int):
-    """Layer ``i``'s parameters: a view into each stacked leaf."""
+    """Layer ``i``'s parameters: a view into each stacked leaf (or the
+    ``i``-th tree of a per-layer list)."""
+    if isinstance(blocks, list):
+        return blocks[i]
     return tree_map(lambda a: a[i], blocks)
+
+
+def _maybe_remat(fn, cfg: LMConfig):
+    """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat`` and
+    autograd is recording: only the block's inputs are kept, its
+    activations are recomputed in backward."""
+    if not cfg.remat:
+        return fn
+
+    def run(*args):
+        if torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    return run
 
 
 # ------------------------------------------------------------- block specs
@@ -102,7 +130,8 @@ def forward(params, tokens, cfg: LMConfig,
     """tokens (B, S) -> (final hidden states (B, S, d) [pre-unembed], aux)."""
     _require_ported(cfg)
     x = embed_tokens(params["embed"], tokens, cfg)
-    body = _dense_block if cfg.family == DENSE else _ssm_block
+    body = _maybe_remat(_dense_block if cfg.family == DENSE else _ssm_block,
+                        cfg)
     for i in range(cfg.n_layers):
         x = body(_layer(params["blocks"], i), x, cfg)
     x = apply_norm(params["final_norm"], x, cfg)
@@ -177,10 +206,48 @@ def decode_step(params, cache, tokens, pos: int, cfg: LMConfig):
     return unembed(params["embed"], x, cfg), cache
 
 
-def lm_loss(params, batch, cfg: LMConfig, aux_coef: float = 0.01):
-    raise NotImplementedError("lm_loss comes with the LM training slice")
+# ------------------------------------------------------------------- loss
+def _xent_chunk(embed, xx, ll, cfg: LMConfig):
+    """(sum of the chunk's token NLLs, count of its valid labels)."""
+    logits = unembed(embed, xx, cfg).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = ll >= 0
+    gold = torch.gather(logits, -1,
+                        torch.clamp(ll, min=0).long()[..., None])[..., 0]
+    nll = torch.where(valid, lse - gold, torch.zeros((), device=lse.device))
+    return torch.sum(nll), torch.sum(valid).float()
 
 
 def chunked_xent(params, x, labels, cfg: LMConfig, chunk: int = 512):
-    raise NotImplementedError("chunked_xent comes with the LM training slice")
+    """Sequence-chunked softmax cross-entropy; never stores (B, S, V).
 
+    ``S`` is padded to a multiple of ``chunk`` with label -1, and labels
+    -1 are masked; each chunk's logits are recomputed in backward.
+    """
+    B, S, _ = x.shape
+    chunk = max(1, min(chunk, S))
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, S + pad, chunk):
+        args = (params["embed"], x[:, c:c + chunk], labels[:, c:c + chunk],
+                cfg)
+        if remat:
+            s, n = checkpoint(_xent_chunk, *args, use_reentrant=False)
+        else:
+            s, n = _xent_chunk(*args)
+        tot, cnt = tot + s, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params, batch, cfg: LMConfig, aux_coef: float = 0.01):
+    """batch: {"tokens": (B, S) int, "labels": (B, S) int (-1 = pad)}."""
+    x, aux = forward(params, batch["tokens"], cfg, batch.get("vision"))
+    loss = chunked_xent(params, x, batch["labels"], cfg)
+    if cfg.family == MOE:
+        loss = loss + aux_coef * aux
+    return loss

@@ -1,9 +1,11 @@
 """Mamba-1 selective-SSM block (falcon-mamba-7b), port of ``repro.models.ssm``.
 
-Prefill runs the reference's chunked sequential scan (``_selective_scan``)
-step by step in torch ops: the same padding to a chunk multiple and the
-same per-step discretization ``exp(dt A)``, ``dt x B``; the
-(B, S, d_inner, state) tensor is never materialized.  Decode keeps
+Training and prefill run the reference's chunked sequential scan
+(``_selective_scan``) step by step in torch ops: the same padding to a
+chunk multiple and the same per-step discretization ``exp(dt A)``,
+``dt x B``; the (B, S, d_inner, state) tensor is never materialized, and
+under autograd each chunk is recomputed in backward (the reference's
+``jax.checkpoint`` per chunk).  Decode keeps
 (conv_state, ssm_state) and advances one step.  As in the reference, the
 served block runs this plain scan; the hand-written K7 kernel
 (``kernels.ops.selective_scan``) is held against it.
@@ -14,6 +16,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import LMConfig
 from repro_torch.nn import ParamSpec
@@ -55,25 +58,49 @@ def _causal_conv(x, w, b, state: Optional[torch.Tensor] = None):
     return y + b.to(x.dtype), new_state
 
 
+def _scan_chunk(h, dt, xc, Bs, Cs, A):
+    """Steps of one chunk: (h after them, y (B, chunk, di))."""
+    ys = []
+    # unbind: one backward op a chunk stacks the steps' grads (indexing
+    # each step would scatter each into a zero tensor of the chunk)
+    for dt_t, x_t, B_t, C_t in zip(dt.unbind(1), xc.unbind(1), Bs.unbind(1),
+                                   Cs.unbind(1)):
+        dA = torch.exp(dt_t[..., None] * A)  # (B, di, st)
+        h = dA * h + (dt_t * x_t)[..., None] * B_t[:, None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, C_t))
+    return h, torch.stack(ys, dim=1)
+
+
 def _selective_scan(dt, Bs, Cs, xc, A, h0, chunk: int):
     """h_t = exp(dt A) h_{t-1} + dt B_t x_t ;  y_t = (C_t . h_t).
 
     dt, xc: (B, S, di); Bs, Cs: (B, S, st); A: (di, st); h0: (B, di, st).
     Returns (y (B, S, di) float32, h_final).
+
+    Under autograd each chunk of steps runs in ``torch.utils.checkpoint``
+    (non-reentrant), the reference's ``jax.checkpoint`` of ``chunk_body``:
+    backward keeps only the chunk-boundary states and recomputes the
+    steps of one chunk at a time.  The values are the plain loop's, bit
+    for bit.
     """
     B, S, di = xc.shape
     chunk = max(1, min(chunk, S))
     pad = (-S) % chunk
     if pad:  # padded steps have dt = 0: exp(0) = 1 keeps h unchanged
         dt, xc, Bs, Cs = (F.pad(a, (0, 0, 0, pad)) for a in (dt, xc, Bs, Cs))
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (dt, Bs, Cs, xc, A, h0))
     h = h0
     ys = []
-    for t in range(S + pad):
-        dt_t, x_t = dt[:, t], xc[:, t]
-        dA = torch.exp(dt_t[..., None] * A)  # (B, di, st)
-        h = dA * h + (dt_t * x_t)[..., None] * Bs[:, t, None, :]
-        ys.append(torch.einsum("bds,bs->bd", h, Cs[:, t]))
-    y = torch.stack(ys, dim=1)[:, :S]
+    for c in range(0, S + pad, chunk):
+        args = (h, dt[:, c:c + chunk], xc[:, c:c + chunk],
+                Bs[:, c:c + chunk], Cs[:, c:c + chunk], A)
+        if remat:
+            h, y = checkpoint(_scan_chunk, *args, use_reentrant=False)
+        else:
+            h, y = _scan_chunk(*args)
+        ys.append(y)
+    y = torch.cat(ys, dim=1)[:, :S]
     return y, h
 
 

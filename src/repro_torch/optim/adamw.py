@@ -12,7 +12,10 @@ corrections ``c1``, ``c2`` taken from ``step + 1`` in float32, so the port
 tracks the JAX package step for step; ``torch.optim.AdamW`` decays first
 and divides ``sqrt(v)`` by ``sqrt(c2)``, which rounds differently.
 ``step`` may be an int or a device tensor (the guarded chunk driver keeps
-its counter on the card).
+its counter on the card).  ``state_dtype`` (bf16 moments) and the blocked
+update of leaves above ``scan_threshold`` are the reference's; the LM
+train step (``repro_torch.runtime.steps``) updates with ``donate=True``,
+in place, as the reference's jit donates the train state.
 """
 from __future__ import annotations
 
@@ -33,6 +36,14 @@ def _step_f32(step, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(step, device=like.device).to(torch.float32)
 
 
+def _chunks(n: int, cap: int = 32) -> int:
+    """Largest divisor of ``n`` that is <= ``cap`` (1 => no blocking)."""
+    for d in range(min(cap, n), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamW:
     lr: Callable | float = 1e-3
@@ -41,26 +52,35 @@ class AdamW:
     eps: float = 1e-8
     weight_decay: float = 0.0
     grad_clip_norm: Optional[float] = None
-    # The moments are float32.  The reference's ``state_dtype`` (bf16
-    # moments) waits for a caller that needs it.
-    # The reference updates leaves above this size block by block to bound
-    # its f32 working copies; DONN phase planes are far below it, so the
-    # field is accepted and has no effect here.
+    state_dtype: Any = torch.float32  # bf16 option halves optimizer memory
+    # leaves bigger than this are updated one axis-0 block at a time (the
+    # reference's ``_chunks``: the largest divisor of dim 0 up to 32), so
+    # the float32 working copies are one block, not the whole stacked
+    # tensor; the blocks compute what the whole leaf would, bit for bit
     scan_threshold: int = 1 << 26
 
     def _lr(self, step):
         return self.lr(step) if callable(self.lr) else self.lr
 
     def init(self, params) -> AdamWState:
-        z = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
+        z = lambda p: torch.zeros(p.shape, dtype=self.state_dtype,  # noqa: E731
                                   device=p.device)
         return AdamWState(mu=tree_map(z, params), nu=tree_map(z, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params, step):
+    def update(self, grads, state: AdamWState, params, step, *,
+               donate: bool = False):
+        """``(new_params, new_state)``.  With ``donate`` the params, the
+        moments and the grads are the caller's to give up: clipping scales
+        the grads in place and the new values are written into the params'
+        and moments' own tensors (the reference's donated buffers), so the
+        update allocates nothing of a leaf's size.  Without it the
+        arguments are left untouched."""
         if self.grad_clip_norm is not None:
-            grads = clip_by_global_norm(grads, self.grad_clip_norm)
+            grads = clip_by_global_norm(grads, self.grad_clip_norm,
+                                        inplace=donate)
         b1, b2 = self.b1, self.b2
+        sd = self.state_dtype
         flat_p = tree_leaves(params)
         stp = _step_f32(step, flat_p[0]) + 1.0
         c1 = 1.0 - b1 ** stp
@@ -69,16 +89,33 @@ class AdamW:
 
         def upd(p, g, m, v):
             g = g.to(torch.float32)
-            m = b1 * m + (1 - b1) * g
-            v = b2 * v + (1 - b2) * g * g
+            m = b1 * m.to(torch.float32) + (1 - b1) * g
+            v = b2 * v.to(torch.float32) + (1 - b2) * g * g
             mh = m / c1
             vh = v / c2
             delta = mh / (torch.sqrt(vh) + self.eps)
             pf = p.to(torch.float32)
             new_p = pf - lr * (delta + self.weight_decay * pf)
-            return new_p.to(p.dtype), m, v
+            return new_p.to(p.dtype), m.to(sd), v.to(sd)
 
-        out = [upd(p, g, m, v) for p, g, m, v in zip(
+        def upd_leaf(p, g, m, v):
+            nb = _chunks(p.shape[0]) if p.dim() >= 2 else 1
+            blocked = p.numel() > self.scan_threshold and nb > 1
+            if not (blocked or donate):
+                return upd(p, g, m, v)
+            if not donate:  # the blocks write into copies
+                p, m, v = p.clone(), m.to(sd, copy=True), v.to(sd, copy=True)
+            rows = p.shape[0] // nb if blocked else None
+            blocks = ([(slice(r, r + rows),)
+                       for r in range(0, p.shape[0], rows)]
+                      if blocked else [()])
+            for sl in blocks:
+                for dst, val in zip((p, m, v),
+                                    upd(p[sl], g[sl], m[sl], v[sl])):
+                    dst[sl] = val
+            return p, m, v
+
+        out = [upd_leaf(p, g, m, v) for p, g, m, v in zip(
             flat_p, tree_leaves(grads), tree_leaves(state.mu),
             tree_leaves(state.nu))]
         new_p = tree_unflatten(params, [o[0] for o in out])
@@ -123,7 +160,13 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, inplace: bool = False):
+    """Grads scaled to a global norm of at most ``max_norm``; ``inplace``
+    scales the caller's tensors (the same products, written back)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+    if inplace:
+        for g in tree_leaves(grads):
+            g.mul_(scale)
+        return grads
     return tree_map(lambda g: (g * scale).to(g.dtype), grads)

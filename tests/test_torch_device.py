@@ -18,7 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.convert import (  # noqa: E402
-    donn_state_from_jax, lm_params_from_jax, params_from_jax,
+    donn_state_from_jax, lm_params_from_jax, lm_train_state_from_jax,
+    params_from_jax,
 )
 from repro_torch.optim import AdamW  # noqa: E402
 from repro_torch.runtime.donn_steps import make_donn_train_step  # noqa: E402
@@ -26,10 +27,11 @@ from repro_torch.core.config import DONNConfig, LayerSpec  # noqa: E402
 from repro_torch.core.models import DONN, build_model  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import serve, serve_donn  # noqa: E402
+from repro_torch.runtime import steps as lm_steps  # noqa: E402
 from repro_torch.models import get_config as lm_config  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.layers import apply_rotary, rope_angles  # noqa: E402
-from repro_torch.tree import tree_map  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.runtime.inference import (  # noqa: E402
     InferenceEngine, MicroBatcher, freeze,
 )
@@ -114,13 +116,17 @@ def _entry_points():
             "params": {"phase": {}}, "mu": {"phase": {}},
             "nu": {"phase": {}}, "step": np.zeros((), np.int32)}),
         "make_donn_train_step": lambda: make_donn_train_step(CFG, AdamW()),
+        "lm_train_state_from_jax": lambda: lm_train_state_from_jax({
+            "params": {"embed": {}, "final_norm": {}, "blocks": {}},
+            "mu": {}, "nu": {}, "step": np.zeros((), np.int32)}),
     }
 
 
 @pytest.mark.parametrize("name", ["build_model", "DONN", "params_from_jax",
                                   "serve_donn", "lm_params_from_jax",
                                   "serve", "donn_state_from_jax",
-                                  "make_donn_train_step"])
+                                  "make_donn_train_step",
+                                  "lm_train_state_from_jax"])
 def test_entry_points_default_to_the_card(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():
@@ -797,3 +803,31 @@ def test_engine_sees_plane_writes_the_caller_queued(cuda):
         t.copy_(u)
     assert not torch.cuda.current_stream(cuda).query()
     np.testing.assert_array_equal(eng.infer(x), want)
+
+
+def test_lm_train_step_on_the_card_launches_no_kernel(cuda):
+    """Smoke train steps of the dense and ssm families on the card launch
+    none of K1-K7 (the reference's LM training path reaches no Pallas
+    kernel either: RoPE without ``use_pallas``, the chunked plain scan);
+    the loss and the grad norm match a CPU copy's step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("qwen1.5-4b", "falcon-mamba-7b"):
+        cfg = dataclasses.replace(lm_config(arch, smoke=True),
+                                  dtype=torch.float32)
+        opt = AdamW(lr=3e-4, weight_decay=0.01, grad_clip_norm=1.0)
+        state = lm_steps.init_train_state(
+            cfg, torch.Generator(device=cuda).manual_seed(0), opt)
+        cpu = tree_map(lambda t: t.cpu(), state)
+        r = np.random.default_rng(0)
+        batch = {k: torch.from_numpy(r.integers(0, cfg.vocab, (2, 12)))
+                 for k in ("tokens", "labels")}
+        step = lm_steps.make_train_step(cfg, opt, accum_steps=2)
+        ops.reset_launch_counts()
+        state, m = step(state, tree_map(lambda t: t.to(cuda), batch))
+        torch.cuda.synchronize()
+        assert set(ops.launch_counts().values()) == {0}, arch
+        cpu, want = step(cpu, batch)
+        for k, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+            assert abs(float(m[k]) - float(want[k])) <= tol * float(
+                want[k]), (arch, k)
+        assert all(torch.isfinite(t).all() for t in tree_leaves(state))

@@ -123,7 +123,28 @@ script exits non-zero without the final line:
    5, a subprocess SIGTERM'd after step 10 (rc 143, then resumed), and the
    examples' train 200 / resume to 250 / serve 16 requests.  K1-K7
    launches across the phase: zero, asserted.
-11. persistence — artifacts, supervision, the fleet and rollback on the
+11. lm_families — the audio, moe, hybrid and vlm LM families on the card
+   at full width, bf16 matmuls over f32 parameters, no kernel on their
+   path (as in the reference): ``serve.main`` (8 slots, 24 requests,
+   prompt 16, 32 new tokens, cache 128, twice: tokens/s and peak memory)
+   serves musicgen-medium, recurrentgemma-9b and llama-3.2-vision-11b at
+   full depth, mixtral-8x7b at depth 8 of 32 and arctic-480b at depth 1
+   of 35 (the f32 parameters of more do not fit 80 GB); the launcher
+   trains musicgen at full depth, mixtral at depth 2, recurrentgemma at
+   depth 8 and llama-vision at depth 10 for 8 steps as the lm_train phase
+   does (``--profile``: FILE.lmtrain_moe, FILE.lmtrain_hybrid); arctic's
+   smoke config runs 8 launcher steps and 4 + resume 4, bitwise (one
+   full-width arctic layer's training state is 225 GB).  At f32, batch 2,
+   seq 16 (musicgen depth 2, mixtral depth 1, recurrentgemma depth 5,
+   llama-vision depth 5 with its cross gates opened, arctic smoke):
+   decode against prefill on the card (moe capacity lifted, vlm's xk/xv
+   from the vision states; 1e-4 of the max), then logits, ``lm_loss``
+   (moe: with aux), the grad norm, every grad and one ``make_train_step``
+   step against a CPU copy (SLICE_RTOL; the step held as in lm_train),
+   with the tokens that route to another expert set on the card than on
+   the CPU counted and their router margins printed.  K1-K7 launches
+   across the phase: zero, asserted.
+12. persistence — artifacts, supervision, the fleet and rollback on the
    card, every hold raising: ``donn-mnist-5l`` (f32, bf16, int8, f32 with
    ``rfft_first``), ``donn-rgb``, ``donn-seg`` and ``hybrid-slm-printed``
    are saved and cold-started with ``load_deployed`` (no device: the
@@ -146,7 +167,7 @@ script exits non-zero without the final line:
    card and the CPU copy, equal).  Its K1-K3 launches are held against
    what its engines' forwards and training steps owe.
 
-12. mesh — the multi-device slice, after every earlier phase: the
+13. mesh — the multi-device slice, after every earlier phase: the
    card's machine has one card and NCCL takes one rank a card, so the
    k > 1 paths run as k gloo ranks sharing it (``collectives.spawn_ranks``,
    2 ranks, then 4; collectives staged through the host).  Data parallel
@@ -180,8 +201,9 @@ to the bit and its batch row 1 alone equals the row inside its batch.
 
 Then one JSON line lists every kernel with its launches on the main path
 (DONN serving + training, the families, the design flow, LM serving,
-persistence, the mesh's ranks, LM training; the last three also under
-``persistence_launches``, ``mesh_launches`` and ``lm_train_launches``)
+persistence, the mesh's ranks, LM training, the LM families; the last
+four also under ``persistence_launches``, ``mesh_launches``,
+``lm_train_launches`` and ``lm_families_launches``)
 and in the LM holds apart, its launches per training step on each engine,
 per family, per design part and per LM window, error and times, and the
 last line is the device record.
@@ -190,7 +212,8 @@ bucket-32 batches and of PROFILE_CHUNKS 8-step training chunks, with the
 device's busy time and idle share, printed and written to FILE (the
 training table to FILE.train, RGB and segmentation serving to FILE.rgb
 and FILE.seg, an emulate_batch call of 8 candidates to FILE.design, an
-LM training step to FILE.lmtrain and FILE.lmtrain_ssm).
+LM training step to FILE.lmtrain, FILE.lmtrain_ssm, FILE.lmtrain_moe and
+FILE.lmtrain_hybrid).
 """
 from __future__ import annotations
 
@@ -238,7 +261,7 @@ from repro_torch.launch import serve, serve_donn  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import get_config as lm_config  # noqa: E402
-from repro_torch.models import lm, ssm  # noqa: E402
+from repro_torch.models import lm, moe, ssm  # noqa: E402
 from repro_torch.models.layers import (  # noqa: E402
     apply_norm, apply_rotary, embed_tokens, rope_angles,
 )
@@ -2375,22 +2398,55 @@ def phase_design(dev, smi: str, profile) -> dict:
     return out
 
 
-def _lm_serve(arch: str, runs: int = 2) -> dict:
-    """``serve.main`` on the card ``runs`` times with the launch counters
-    reset just before each; returns the served tokens and the launches."""
+def _lm_serve(arch: str, smi: str, cfg=None, runs: int = 2) -> dict:
+    """``serve.main`` on the card ``runs`` times (``cfg``, a depth-cut
+    config, in place of the registered one if given), the launch counters
+    reset just before each; returns the launches, each run's tokens/s (the
+    launcher's own line, host clock) and the peak memory of the runs."""
+    import io
+
     launches = dict.fromkeys(ops.KERNELS, 0)
-    for i in range(runs):
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        served = serve.main(["--arch", arch] + LM_SERVE_FLAGS)
-        torch.cuda.synchronize()
-        for k, v in ops.launch_counts().items():
-            launches[k] += v
-        if served != 24 * 32:
-            raise AssertionError(f"{arch}: served {served} tokens, not 768")
-    print(f"[lm] {arch} serving launches over {runs} runs: {launches} (the "
-          f"reference's served path reaches no Pallas kernel either)")
-    return launches
+    rates = []
+    real = serve.get_config
+    if cfg is not None:
+        serve.get_config = lambda name, smoke=False: cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        for i in range(runs):
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            with contextlib.redirect_stdout(buf):
+                served = serve.main(["--arch", arch] + LM_SERVE_FLAGS)
+            torch.cuda.synchronize()
+            for k, v in ops.launch_counts().items():
+                launches[k] += v
+            print(buf.getvalue(), end="")
+            rates.append(float(re.search(r"\(([0-9.]+) tok/s",
+                                         buf.getvalue()).group(1)))
+            if served != 24 * 32:
+                raise AssertionError(f"{arch}: served {served} tokens, not "
+                                     "768")
+    finally:
+        serve.get_config = real
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cfg = cfg or lm_config(arch)
+    print(f"[lm] {arch} served at {cfg.n_layers} layers (d_model "
+          f"{cfg.d_model}, {_n_params(cfg) / 1e9:.3f}B f32 params, "
+          f"{cfg.dtype} matmuls): "
+          f"{' and '.join(f'{r:.1f}' for r in rates)} tok/s (8 slots, 24 "
+          f"requests, prompt 16, 32 new tokens, cache 128); peak memory "
+          f"{peak:.2f} GB; {time.perf_counter() - t0:.1f}s ({smi}); "
+          f"launches over {runs} runs: {launches} (the reference's served "
+          f"path reaches no Pallas kernel either)")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tok_s": rates, "peak_gb": peak}
+
+
+def _n_params(cfg) -> int:
+    return sum(math.prod(s.shape) for s in tree_leaves(lm.param_specs(cfg)))
 
 
 def _hold_logits(what: str, got, want, rtol: float) -> None:
@@ -2424,7 +2480,7 @@ def phase_lm(dev, smi: str, profile) -> dict:
 
     # --- dense: serve at full width and depth
     cfg = lm_config("qwen1.5-4b")
-    windows["lm_serve_dense"] = _lm_serve("qwen1.5-4b")
+    windows["lm_serve_dense"] = _lm_serve("qwen1.5-4b", smi)["launches"]
 
     # --- f32 at full width, depth 2: the card against a CPU copy, and
     # decode against prefill on the card
@@ -2492,7 +2548,7 @@ def phase_lm(dev, smi: str, profile) -> dict:
 
     # --- ssm: serve at full width and depth, then K7 on layer 0's mixer
     cfg = lm_config("falcon-mamba-7b")
-    windows["lm_serve_ssm"] = _lm_serve("falcon-mamba-7b")
+    windows["lm_serve_ssm"] = _lm_serve("falcon-mamba-7b", smi)["launches"]
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0))
     toks = torch.from_numpy(rng.integers(0, cfg.vocab,
                                          (LM_HOLD_BATCH, LM_HOLD_SEQ)))
@@ -2531,6 +2587,9 @@ LM_TRAIN_TOKENS = 8 * 128  # tokens a step
 LM_TRAIN_SSM_DEPTH = 16  # falcon-mamba-7b's 64 layers need 116 GB of f32
 #                          state (16 B a parameter); 16 layers need 35 GB
 LM_PEAK_STEP, LM_PROFILE_STEP = 3, 5  # launcher calls read / profiled
+# the --profile file of one training step, by family (audio and vlm: none)
+LM_PROFILE_TAGS = {"dense": "lmtrain", "ssm": "lmtrain_ssm",
+                   "moe": "lmtrain_moe", "hybrid": "lmtrain_hybrid"}
 LM_TRAIN_HOLD = (2, 2, 16)  # depth, batch, seq of the card-vs-CPU holds
 # d/dbk is 0 in exact arithmetic (softmax ignores a shift shared by every
 # key): its gradient is rounding noise, held against the largest gradient
@@ -2609,8 +2668,8 @@ def _lm_train_run(arch: str, cfg, smi: str, profile) -> dict:
             torch.cuda.synchronize()
             peak["step"] = torch.cuda.max_memory_allocated()
             return out
-        if k == LM_PROFILE_STEP and profile:
-            tag = "lmtrain" if cfg.family == "dense" else "lmtrain_ssm"
+        tag = LM_PROFILE_TAGS.get(cfg.family)
+        if k == LM_PROFILE_STEP and profile and tag:
             return _profile_once(run, f"{profile}.{tag}")
         return run()
 
@@ -2630,8 +2689,7 @@ def _lm_train_run(arch: str, cfg, smi: str, profile) -> dict:
     timed = [t for k, t in enumerate(m["step_seconds"])
              if k >= 2 and k != LM_PROFILE_STEP]
     sec = float(np.median(timed))
-    n_params = sum(math.prod(s.shape) for s in tree_leaves(
-        lm.param_specs(cfg)))
+    n_params = _n_params(cfg)
     print(f"[lm_train] {arch} ({cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab}, {n_params / 1e9:.3f}B params, "
           f"{cfg.dtype} matmuls, f32 masters and moments), batch 8 x seq "
@@ -2715,6 +2773,26 @@ def _hold_lm_step_params(what: str, got, want, grads, gnorm: float,
           f"{parted} entries past {SLICE_RTOL:g} in all")
 
 
+def _hold_loss_and_grads(tag: str, cfg, params, on_dev, cpu, batch):
+    """lm_loss (moe: with aux), the grad norm and every leaf's grad on the
+    card against the CPU copy, SLICE_RTOL; returns (card grads, CPU loss,
+    CPU grads, CPU grad norm)."""
+    def loss_fn(p, bb):
+        return lm.lm_loss(p, bb, cfg)
+
+    got_l, got_g = lm_steps.loss_and_grads(loss_fn, params, on_dev)
+    want_l, want_g = lm_steps.loss_and_grads(loss_fn, cpu, batch)
+    rel = abs(float(got_l) - float(want_l)) / abs(float(want_l))
+    gn, wn = (float(lm_steps._global_norm(g)) for g in (got_g, want_g))
+    print(f"[lm_train] {tag}: lm_loss {float(got_l):.6f} vs "
+          f"{float(want_l):.6f} (rel {rel:.3e}); grad norm {gn:.6f} vs "
+          f"{wn:.6f} (rel {abs(gn - wn) / wn:.3e}), tol {SLICE_RTOL:g}")
+    if rel > SLICE_RTOL or abs(gn - wn) > SLICE_RTOL * wn:
+        raise AssertionError(f"{tag}: loss or grad norm")
+    _hold_lm_grads(tag, got_g, want_g)
+    return got_g, want_l, want_g, wn
+
+
 def _lm_train_holds(dev, arch: str, keep_state: bool):
     """Full width, depth 2, f32, batch 2, seq 16 on the card against a CPU
     copy: lm_loss, the grad norm and every leaf's grad; the blocked AdamW
@@ -2737,20 +2815,8 @@ def _lm_train_holds(dev, arch: str, keep_state: bool):
              for k in ("tokens", "labels")}
     on_dev = tree_map(lambda t: t.to(dev), batch)
     tag = f"{arch} f32 depth {depth}, batch {b}, seq {s}: card vs CPU"
-
-    def loss_fn(p, bb):
-        return lm.lm_loss(p, bb, cfg)
-
-    got_l, got_g = lm_steps.loss_and_grads(loss_fn, state["params"], on_dev)
-    want_l, want_g = lm_steps.loss_and_grads(loss_fn, cpu["params"], batch)
-    rel = abs(float(got_l) - float(want_l)) / abs(float(want_l))
-    gn, wn = (float(lm_steps._global_norm(g)) for g in (got_g, want_g))
-    print(f"[lm_train] {tag}: lm_loss {float(got_l):.6f} vs "
-          f"{float(want_l):.6f} (rel {rel:.3e}); grad norm {gn:.6f} vs "
-          f"{wn:.6f} (rel {abs(gn - wn) / wn:.3e}), tol {SLICE_RTOL:g}")
-    if rel > SLICE_RTOL or abs(gn - wn) > SLICE_RTOL * wn:
-        raise AssertionError(f"{tag}: loss or grad norm")
-    _hold_lm_grads(tag, got_g, want_g)
+    got_g, want_l, want_g, wn = _hold_loss_and_grads(
+        tag, cfg, state["params"], on_dev, cpu["params"], batch)
 
     # the blocked update (leaves above scan_threshold) against one pass
     whole = dataclasses.replace(opt, scan_threshold=1 << 62)
@@ -2953,6 +3019,265 @@ def phase_lm_train(dev, smi: str, profile) -> dict:
           f"phase {time.perf_counter() - t_phase:.1f}s")
     if any(launches.values()):
         raise AssertionError(f"the LM training path launched {launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# lm_families: the audio, moe, hybrid and vlm LM families served and
+# trained at full width, held against CPU copies, decode against prefill
+# --------------------------------------------------------------------------
+# depth served, trained and held, None for the config's own: cut only where
+# one 80 GB card cannot hold the f32 parameters (serving) or their training
+# state (16 B a parameter); arctic trains and is held at its smoke config
+LM_FAMILY_DEPTHS = {
+    "musicgen-medium": (None, None, 2),
+    "mixtral-8x7b": (8, 2, 1),
+    "arctic-480b": (1, "smoke", "smoke"),
+    "recurrentgemma-9b": (None, 8, 5),
+    "llama-3.2-vision-11b": (None, 10, 5),
+}
+LM_FAMILY_HOLD = (2, 16)  # batch, seq of the card-vs-CPU holds (f32)
+DECODE_RTOL = 1e-4  # decode vs prefill (tests/test_lm_decode.py's bound)
+VLM_GATE = 0.5  # cross gates of the held vlm copy, away from their zero init
+ARCTIC_FLAGS = ["--arch", "arctic-480b", "--smoke", "--batch", "8", "--seq",
+                "128", "--lr", "1e-2", "--warmup", "4", "--log-every", "4",
+                "--device", "cuda"]  # warmup 4: 4 + resume 4 = 8 straight
+
+
+def _family_cfg(arch: str, depth):
+    """``arch``'s full config cut to ``depth`` (None: its own depth;
+    "smoke": its smoke config)."""
+    if depth == "smoke":
+        return lm_config(arch, smoke=True)
+    cfg = lm_config(arch)
+    return cfg if depth is None else dataclasses.replace(cfg, n_layers=depth)
+
+
+def _route_report(what: str, cfg, params, cpu, batch, cpu_batch) -> None:
+    """The top-k expert sets of every moe layer's tokens on the card and
+    on the CPU copy; the router margins (p_k - p_k+1) of the tokens whose
+    sets differ, printed (a near tie can route a token differently)."""
+    real, seen = moe.route, []
+
+    def recording(p, xg, c):
+        out = real(p, xg, c)
+        seen.append(out)
+        return out
+
+    moe.route = recording
+    try:
+        with torch.no_grad():
+            lm.forward(params, batch["tokens"], cfg)
+            lm.forward(cpu, cpu_batch["tokens"], cfg)
+    finally:
+        moe.route = real
+    k, n = cfg.top_k, len(seen) // 2
+    parted, margins = 0, []
+    for (probs, _, idx), (_, _, cidx) in zip(seen[:n], seen[n:]):
+        differ = (idx.sort(-1).values.cpu() != cidx.sort(-1).values).any(-1)
+        top = probs.sort(-1, descending=True).values.cpu()
+        parted += int(differ.sum())
+        margins += (top[..., k - 1] - top[..., k])[differ].tolist()
+    tokens = n * idx.shape[0] * idx.shape[1]
+    print(f"[lm_families] {what}: tokens routed to another expert set on "
+          f"the card than on the CPU: {parted} of {tokens} over {n} "
+          f"layers; their top-{k} margins {margins}")
+
+
+def _family_decode(what: str, cfg, params, batch) -> None:
+    """Decode against prefill on the card (the reference test's recipe:
+    the moe capacity lifted to n_experts, vlm's xk/xv filled from the
+    vision states), within DECODE_RTOL of the prefill's max."""
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    toks = batch["tokens"]
+    B, S = toks.shape
+    with torch.no_grad():
+        full = lm.logits_fn(params, toks, cfg, batch.get("vision"))
+        cache = lm.init_cache(cfg, B, S, device=toks.device)
+        if cfg.family == "vlm":
+            cross = params["cross_blocks"]["xattn"]
+            vis = batch["vision"].to(cfg.dtype)
+            for name, w in (("xk", "wk"), ("xv", "wv")):
+                kv = torch.einsum("bsd,ldk->lbsk", vis, cross[w].to(cfg.dtype))
+                cache[name].copy_(kv.reshape(cache[name].shape))
+        dec = [lm.decode_step(params, cache, toks[:, t:t + 1], t, cfg)[0][:, 0]
+               for t in range(S)]
+        rel = float((torch.stack(dec, 1) - full).abs().max()
+                    / full.abs().max())
+    print(f"[lm_families] {what}: {S} decode steps vs the prefill on the "
+          f"card: rel {rel:.3e} (tol {DECODE_RTOL:g})")
+    if not rel < DECODE_RTOL:
+        raise AssertionError(f"{what}: decode vs prefill {rel:.3e}")
+    _free(cache)
+
+
+def _family_holds(dev, arch: str, cfg) -> None:
+    """f32, batch 2, seq 16, at the hold depth: decode vs prefill on the
+    card; logits, lm_loss (moe: with aux), the grad norm and every leaf's
+    grad on the card against a CPU copy; one make_train_step step against
+    AdamW's update of the CPU copy by its own grads (held as the lm_train
+    phase holds its step)."""
+    t0 = time.perf_counter()
+    laps, last = {}, [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - last[0]
+        last[0] = now
+
+    b, s = LM_FAMILY_HOLD
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    sched = warmup_cosine(3e-4, 20, 100)  # the launcher's defaults
+    opt = AdamW(lr=sched, weight_decay=0.01, grad_clip_norm=1.0)
+    state = lm_steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(2), opt)
+    if cfg.family == "vlm":  # open the gates: tanh(0) cuts the cross path
+        cross = state["params"]["cross_blocks"]
+        cross["gate_ffn"].fill_(VLM_GATE)
+        cross["xattn"]["gate"].fill_(-VLM_GATE)
+    rng = np.random.default_rng(11)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        batch["vision"] = torch.from_numpy(rng.standard_normal(
+            (b, cfg.vision_seq, cfg.d_model)).astype(np.float32))
+    on_dev = tree_map(lambda t: t.to(dev), batch)
+    what = (f"{arch} f32 {cfg.n_layers} layers ({_n_params(cfg) / 1e9:.3f}B "
+            f"params), batch {b}, seq {s}")
+    lap("init")
+    _family_decode(what, cfg, state["params"], on_dev)
+    lap("decode")
+    cpu = tree_map(lambda t: t.to("cpu", copy=True), state["params"])
+    lap("copy to the CPU")
+    tag = f"{what}: card vs CPU"
+    if cfg.family == "moe":
+        _route_report(tag, cfg, state["params"], cpu, on_dev, batch)
+    with torch.no_grad():
+        _hold_logits(f"{tag}, logits", lm.logits_fn(
+            state["params"], on_dev["tokens"], cfg, on_dev.get("vision")),
+            lm.logits_fn(cpu, batch["tokens"], cfg, batch.get("vision")),
+            SLICE_RTOL)
+    lap("logits")
+    got_g, want_l, want_g, wn = _hold_loss_and_grads(
+        tag, cfg, state["params"], on_dev, cpu, batch)
+    del got_g
+    lap("grads")
+
+    # one make_train_step step on the card (the state donated), against
+    # the CPU copy's grads through AdamW (want_g is clipped in place: its
+    # norm is then min(wn, 1), the clip _hold_lm_step_params reckons with)
+    want_p = _first_adamw_step(opt, cpu, want_g, state["step"].cpu(), dev)
+    lap("reference AdamW")
+    new, m = lm_steps.make_train_step(cfg, opt)(state, on_dev)
+    step_what = f"{tag}, one make_train_step step"
+    for k, want in (("loss", float(want_l)), ("grad_norm", wn)):
+        g = float(m[k])
+        print(f"[lm_families] {step_what}: {k} {g:.6f} vs {want:.6f} (rel "
+              f"{abs(g - want) / want:.3e}, tol {SLICE_RTOL:g})")
+        if abs(g - want) > SLICE_RTOL * want:
+            raise AssertionError(f"{step_what}: {k}")
+    _hold_lm_step_params(step_what, new["params"], want_p, want_g,
+                         min(wn, 1.0), float(sched(0)), opt.eps)
+    del want_p, want_g, cpu
+    _free(new, state)
+    lap("card step and its hold")
+    print(f"[lm_families] {arch} holds: {time.perf_counter() - t0:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ")")
+
+
+def _first_adamw_step(opt, params, grads, step, dev):
+    """AdamW's first step from zero moments of the CPU copy's ``params``
+    and ``grads`` (clipped by their global norm on the CPU, in place), one
+    leaf at a time on the card, in place; the new params on the CPU.  The
+    update is elementwise, the port's own code on either device; the CPU
+    takes a minute for the 3.1B entries of recurrentgemma's hold, the card
+    a second."""
+    from repro_torch.optim.adamw import clip_by_global_norm
+
+    clip_by_global_norm(grads, opt.grad_clip_norm, inplace=True)
+    leafwise = dataclasses.replace(opt, grad_clip_norm=None)
+    out = []
+    for p, g in zip(tree_leaves(params), tree_leaves(grads)):
+        p = p.to(dev)
+        new, _ = leafwise.update(
+            [g.to(dev)], lm_steps.AdamWState([torch.zeros_like(p)],
+                                             [torch.zeros_like(p)]),
+            [p], step, donate=True)
+        out.append(new[0].cpu())
+    return tree_unflatten(params, out)
+
+
+def _arctic_control_flow(smi: str) -> None:
+    """arctic-480b --smoke through the launcher on the card: 8 steps with
+    a falling loss, and 4 + resume 4 bitwise the straight run."""
+    flags = ARCTIC_FLAGS
+    tmp = tempfile.mkdtemp(prefix="lm_arctic_")
+    t0 = time.perf_counter()
+    try:
+        straight, _ = _launcher_main(flags + ["--steps", "8"])
+        ck = os.path.join(tmp, "ck")
+        first, _ = _launcher_main(flags + ["--steps", "4", "--ckpt-dir", ck,
+                                           "--ckpt-every", "4"])
+        second, out = _launcher_main(flags + ["--steps", "8", "--ckpt-dir",
+                                              ck, "--ckpt-every", "100"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bitwise = first + second == straight
+    print(f"[lm_families] arctic-480b --smoke through the launcher: losses "
+          f"{[round(v, 4) for v in straight]}; 4 + resume 4 bitwise the "
+          f"straight 8: {bitwise}; {time.perf_counter() - t0:.1f}s ({smi})")
+    if (not bitwise or "resuming from step 4" not in out
+            or not np.mean(straight[-3:]) < np.mean(straight[:3])):
+        raise AssertionError("arctic-480b smoke: the launcher's control "
+                             "flow failed")
+
+
+def phase_lm_families(dev, smi: str, profile) -> dict:
+    """The audio, moe, hybrid and vlm LM families on the card at full
+    width: served (depths of LM_FAMILY_DEPTHS), trained through the
+    launcher, held against CPU copies, decode against prefill.  Returns
+    the phase's kernel launches, summed over every window (its path
+    launches none, as in the reference).  ``_lm_serve`` counts its own
+    runs from zero, so each family's training and holds are a window of
+    their own."""
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(ops.KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    for arch, (d_serve, d_train, d_hold) in LM_FAMILY_DEPTHS.items():
+        cfg = _family_cfg(arch, d_serve)
+        if cfg.n_layers != lm_config(arch).n_layers:
+            print(f"[lm_families] {arch}: served at depth {cfg.n_layers} of "
+                  f"{lm_config(arch).n_layers} ({_n_params(cfg) / 1e9:.2f}B "
+                  f"f32 params; the full depth does not fit 80 GB)")
+        add(_lm_serve(arch, smi, cfg)["launches"])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        if d_train == "smoke":
+            _arctic_control_flow(smi)
+        else:
+            cfg = _family_cfg(arch, d_train)
+            if cfg.n_layers != lm_config(arch).n_layers:
+                print(f"[lm_families] {arch}: trained at depth "
+                      f"{cfg.n_layers} of {lm_config(arch).n_layers} "
+                      f"({_n_params(cfg) * 16 / 1e9:.1f} GB of params, "
+                      f"grads, mu and nu)")
+            _lm_train_run(arch, cfg, smi, profile)
+        _family_holds(dev, arch, _family_cfg(arch, d_hold))
+        torch.cuda.synchronize()
+        add(ops.launch_counts())
+        torch.cuda.empty_cache()
+    print(f"[lm_families] kernel launches across the phase (every family's "
+          f"serving, training and holds): {launches} (the reference's moe, "
+          f"rglru and cross-attention paths reach no Pallas kernel either); "
+          f"phase {time.perf_counter() - t_phase:.1f}s")
+    if any(launches.values()):
+        raise AssertionError(f"the LM families' path launched {launches}")
     return launches
 
 
@@ -3928,8 +4253,11 @@ def main(argv=None) -> int:
                          "segmentation serving (FILE.rgb, FILE.seg), an "
                          "emulate_batch call of 8 candidates (FILE.design), "
                          "a qwen1.5-4b decode step at 8 slots (FILE.lm) and "
-                         "one LM training step of qwen1.5-4b and "
-                         "falcon-mamba-7b (FILE.lmtrain, FILE.lmtrain_ssm)")
+                         "one LM training step of qwen1.5-4b, "
+                         "falcon-mamba-7b, mixtral-8x7b and "
+                         "recurrentgemma-9b (FILE.lmtrain, "
+                         "FILE.lmtrain_ssm, FILE.lmtrain_moe, "
+                         "FILE.lmtrain_hybrid)")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     smi = phase_device()
@@ -3945,6 +4273,7 @@ def main(argv=None) -> int:
     design = phase_design(dev, smi, args.profile)
     lm_windows = phase_lm(dev, smi, args.profile)
     lm_training = phase_lm_train(dev, smi, args.profile)
+    lm_families = phase_lm_families(dev, smi, args.profile)
     persistence = phase_persistence(dev, smi)
     mesh = phase_mesh(dev, smi)
     kernels = []
@@ -3957,7 +4286,8 @@ def main(argv=None) -> int:
             "replaces": replaces,
             # the main path: DONN serving and training, the advanced
             # families, the design flow, LM serving, persistence and the
-            # fleet, the mesh's ranks, LM training (none); the LM holds
+            # fleet, the mesh's ranks, LM training and the LM families
+            # (none); the LM holds
             # (K6 on q/k, K7 on the mixer tensors) apart
             "launches": (launches[name] + train["counted"][name]
                          + sum(f[name] for f in families.values())
@@ -3965,7 +4295,7 @@ def main(argv=None) -> int:
                          + sum(v for w, v in lm_launches.items()
                                if w.startswith("lm_serve"))
                          + persistence[name] + mesh[name]
-                         + lm_training[name]),
+                         + lm_training[name] + lm_families[name]),
             "hold_launches": sum(v for w, v in lm_launches.items()
                                  if w.startswith("lm_hold")),
             "serve_launches": launches[name],
@@ -3977,6 +4307,7 @@ def main(argv=None) -> int:
             "persistence_launches": persistence[name],
             "mesh_launches": mesh[name],
             "lm_train_launches": lm_training[name],
+            "lm_families_launches": lm_families[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

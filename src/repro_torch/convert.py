@@ -5,9 +5,11 @@ The functions take JAX pytrees as nested dicts of numpy arrays
 dicts of tensors on ``device``: ``params_from_jax`` a DONN's ``{"phase":
 {"layer_i": tensor}}``, ``donn_state_from_jax`` a DONN train state
 (``{"params", "mu", "nu", "step"}``, ``repro.runtime.donn_steps``),
-``lm_params_from_jax`` an LM's ``{"embed", "final_norm", "blocks"}`` tree
-(stacked "layers" axis kept), ``lm_train_state_from_jax`` an LM train
-state (``repro.runtime.steps.init_train_state``; bf16 moments stay bf16).
+``lm_params_from_jax`` an LM's ``{"embed", "final_norm", ...}`` tree with
+its family's stacked groups (``blocks``; vlm's ``cross_blocks``; hybrid's
+``rec_blocks``, ``attn_blocks``, ``tail_rec``; stacked axes kept),
+``lm_train_state_from_jax`` an LM train state
+(``repro.runtime.steps.init_train_state``; bf16 moments stay bf16).
 They only walk dicts: nothing of JAX is imported (a bf16 array arrives
 as numpy's ``bfloat16`` extension type and is read as its raw 2-byte
 words).
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import lm
 
 
 def _float_tree(tree, dev):
@@ -70,10 +73,11 @@ def lm_params_from_jax(tree, device=None) -> dict:
     """A JAX LM parameter tree (``repro.models.lm.init``) -> the port's
     tree for ``repro_torch.models.lm``, on ``device``."""
     out = _float_tree(tree, resolve_device(device))
-    missing = {"embed", "final_norm", "blocks"} - set(out)
+    missing = {"embed", "final_norm"} - set(out)
     if missing:
         raise ValueError(f"expected an LM parameter tree; missing "
                          f"{sorted(missing)}")
+    lm.stack_depths(out)  # one family's stacked groups, or ValueError
     return out
 
 

@@ -4,7 +4,7 @@ Thin wrappers over ``repro_torch.runtime.sharding.make_mesh_2d``: a 2-D
 ``("data", "model")`` ``DeviceMesh`` over the ranks of the process group.
 The reference's TPU constants (its roofline's peak rates) and its
 512-chip production mesh belong to the dry-run tools, which are not
-ported yet (ROADMAP queue 1, item 10).
+ported yet (ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 

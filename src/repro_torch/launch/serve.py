@@ -8,10 +8,12 @@ slot (the reference's lockstep demo: a request admitted after the first
 wave starts emitting at once).  Parameters are random, drawn on the device
 from a ``torch.Generator`` seeded with ``--seed``.
 
-The flags are the reference's.  ``--mesh`` takes only ``1x1``: LM tensor
-parallelism comes with the rest of the LM family (ROADMAP queue 1, item
-11); the DONN mesh is ``repro_torch.runtime.sharding``.  ``--device``
-defaults to the CUDA card.
+Every registered architecture serves; vlm with the zero vision K/V cache
+of ``lm.init_cache``, as the reference's launcher does.  The flags are the
+reference's.  ``--mesh`` takes only ``1x1``: LM tensor parallelism is
+ROADMAP queue 1, item 5; the DONN mesh is
+``repro_torch.runtime.sharding``.  ``--device`` defaults to the CUDA
+card.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \
@@ -101,8 +103,7 @@ def main(argv=None):
     if args.mesh != "1x1":
         raise NotImplementedError(
             f"--mesh {args.mesh}: multi-device LM serving (tensor "
-            "parallelism) is not ported yet; it comes with the rest of the "
-            "LM family (ROADMAP queue 1, item 11)"
+            "parallelism) is not ported yet (ROADMAP queue 1, item 5)"
         )
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)

@@ -1,7 +1,7 @@
 """Fault-tolerant LM training launcher (port of ``repro.launch.train``).
 
-Trains a registered dense or ssm architecture (reduced or full config) on
-one device, with the reference's flags and behaviour:
+Trains any registered architecture (reduced or full config) on one
+device, with the reference's flags and behaviour:
 - checkpoint/restart: atomic checkpoints every --ckpt-every steps in the
   reference's on-disk format, automatic resume from LATEST (a state the
   JAX package saved resumes here too);
@@ -16,11 +16,14 @@ one device, with the reference's flags and behaviour:
 
 Parameters are random, drawn on the device from a ``torch.Generator``
 seeded with --seed; masters and AdamW moments are float32 and the matmuls
-run in the config's dtype.  ``--device`` defaults to the CUDA card.
-``--mesh`` takes only 1x1: LM tensor/FSDP parallelism comes with the rest
-of the LM family (ROADMAP queue 1, item 11).  ``--metrics-out`` writes the
-reference's ``losses`` and ``stragglers`` and, beside them, each step's
-seconds as the monitor timed it (``step_seconds``, in the order run).
+run in the config's dtype.  A vlm batch carries the reference's vision
+stub: ``np.random.default_rng(0).normal(0, 1, (batch, vision_seq,
+d_model))`` in float32, the same array every step (put on the device
+once).  ``--device`` defaults to the CUDA card.  ``--mesh`` takes only
+1x1: LM tensor/FSDP parallelism is ROADMAP queue 1, item 5.
+``--metrics-out`` writes the reference's ``losses`` and ``stragglers``
+and, beside them, each step's seconds as the monitor timed it
+(``step_seconds``, in the order run).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --smoke \
@@ -34,6 +37,7 @@ import math
 import signal
 import sys
 
+import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
@@ -85,8 +89,7 @@ def main(argv=None):
     if (data, model) != (1, 1):
         raise NotImplementedError(
             f"--mesh {args.mesh}: multi-device LM training (tensor/FSDP "
-            "parallelism) is not ported yet; it comes with the rest of the "
-            "LM family (ROADMAP queue 1, item 11)"
+            "parallelism) is not ported yet (ROADMAP queue 1, item 5)"
         )
     dev = resolve_device(args.device)
     cfg: LMConfig = get_config(args.arch, smoke=args.smoke)
@@ -116,10 +119,18 @@ def _train(args, cfg: LMConfig, dev, stop):
         "tokens": ParamSpec((args.batch, args.seq), torch.int32),
         "labels": ParamSpec((args.batch, args.seq), torch.int32),
     }
+    if cfg.family == "vlm":
+        batch_specs["vision"] = ParamSpec(
+            (args.batch, cfg.vision_seq, cfg.d_model), torch.float32)
     step_fn, s_place, b_place, sspecs = steps_mod.compile_train_step(
         cfg, None, batch_specs, optimizer=optimizer, accum_steps=args.accum,
         device=dev,
     )
+    vision = None
+    if cfg.family == "vlm":  # the frontend stub: one draw for every batch
+        vision = torch.from_numpy(np.random.default_rng(0).normal(
+            0, 1, (args.batch, cfg.vision_seq, cfg.d_model)
+        ).astype("float32")).to(b_place)
 
     # ---- init or elastic resume ----
     start_step = 0
@@ -143,7 +154,10 @@ def _train(args, cfg: LMConfig, dev, stop):
             if pin:
                 t = t.pin_memory()
             return t.to(b_place, non_blocking=pin)
-        return tree_map(put, b)
+        b = tree_map(put, b)
+        if vision is not None:
+            b["vision"] = vision
+        return b
 
     def make_stream(skip: int) -> Prefetcher:
         """Deterministic data stream positioned at step ``skip`` — used at

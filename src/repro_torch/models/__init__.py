@@ -1,9 +1,10 @@
-"""LM family of the port: the dense and ssm serving path of ``repro.models``.
+"""LM families of the port: the six families of ``repro.models``.
 
 ``config`` (``LMConfig``, registry), ``layers`` (norms, MLPs, embeddings,
-RoPE), ``attention``, ``ssm`` (mamba-1) and ``lm`` (specs, forward,
-logits, decode cache and step).  The moe, vlm, audio and hybrid families
-raise ``NotImplementedError`` until their slice.
+RoPE), ``attention`` (self, cached decode, vlm cross-attention), ``ssm``
+(mamba-1), ``moe`` (capacity-based expert dispatch), ``rglru`` (the
+Griffin recurrent block) and ``lm`` (specs, forward, logits, loss, decode
+cache and step).
 """
 from repro_torch.models.config import LMConfig, get_config, list_archs
 

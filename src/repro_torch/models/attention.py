@@ -10,7 +10,11 @@ before the PV product.  ``scaled_dot_product_attention`` is not used: it
 computes another function (no chunked rescaling, its own masking).
 
 The reference's sharding hints (``constrain``) have no counterpart on one
-card and are dropped.  ``cross_attention`` (vlm) comes with its slice.
+card and are dropped.  ``cross_attention`` (vlm) attends over vision
+states that may be float32 under a bf16 model, as the reference's
+launcher feeds them: it computes in the promoted type where the
+reference's mixed operands promote (JAX promotes ``f32 @ bf16`` to f32,
+torch refuses it).
 """
 from __future__ import annotations
 
@@ -211,8 +215,21 @@ def decode_self_attention(
 
 # ----------------------------------------------------------- cross-attend
 def cross_attention(p, x, vision_kv, cfg: LMConfig):
-    """vlm cross-attention: comes with the vlm slice."""
-    raise NotImplementedError(
-        "cross_attention (vlm) comes with the vlm slice (ROADMAP queue 1 "
-        "step 13)"
-    )
+    """x (B, S, d) attends over precomputed vision states (B, Sv, d).
+
+    Non-causal; gated with tanh(gate) (llama-3.2-vision style).  The K/V
+    projections run in ``promote_types(vision_kv.dtype, cfg.dtype)``,
+    the weights rounded to ``cfg.dtype`` first, as the reference's
+    ``vision_kv @ wk.astype(dt)``; the output keeps ``q``'s dtype.
+    """
+    B, S, _ = x.shape
+    dt = cfg.dtype
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    ct = torch.promote_types(vision_kv.dtype, dt)
+    vis = vision_kv.to(ct)
+    q = (x @ p["wq"].to(dt)).reshape(B, S, H, Dh)
+    k = (vis @ p["wk"].to(dt).to(ct)).reshape(B, -1, KV, Dh)
+    v = (vis @ p["wv"].to(dt).to(ct)).reshape(B, -1, KV, Dh)
+    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    out = out.reshape(B, S, H * Dh) @ p["wo"].to(dt)
+    return out * torch.tanh(p["gate"].to(dt))

@@ -4,9 +4,7 @@
 a torch dtype (default ``torch.bfloat16``), the type every matmul runs in
 while parameters stay float32.  The registry is a plain dict filled from
 ``repro_torch.configs`` (one module per architecture, as in the JAX
-package).  This slice serves the dense and ssm families; the moe, vlm,
-audio and hybrid architectures are known by name and raise
-``NotImplementedError`` until their slice (ROADMAP queue 1, step 13).
+package) and holds all ten of the reference's architectures.
 """
 from __future__ import annotations
 
@@ -18,7 +16,6 @@ import torch
 DENSE, MOE, VLM, AUDIO, SSM, HYBRID = (
     "dense", "moe", "vlm", "audio", "ssm", "hybrid",
 )
-PORTED_FAMILIES = (DENSE, SSM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,14 +102,8 @@ LM_SHAPES = (
 
 def get_config(name: str, smoke: bool = False) -> LMConfig:
     """The registered FULL (or SMOKE) config of an architecture id."""
-    from repro_torch.configs import LM_CONFIGS, LM_PENDING
+    from repro_torch.configs import LM_CONFIGS
 
-    if name in LM_PENDING:
-        raise NotImplementedError(
-            f"{name} is a {LM_PENDING[name]} architecture; the port serves "
-            f"the dense and ssm families so far ({LM_PENDING[name]} comes "
-            "with its slice, ROADMAP queue 1 step 13)"
-        )
     if name not in LM_CONFIGS:
         raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
     full, smoke_cfg = LM_CONFIGS[name]

@@ -1,0 +1,125 @@
+"""RG-LRU recurrent block (recurrentgemma-9b / Griffin).
+
+Port of ``repro.models.rglru``.  Recurrent block: two input branches —
+(linear -> causal conv -> RG-LRU) and (linear -> GeLU) — multiplied,
+then projected out.  The RG-LRU recurrence:
+
+    r_t = sigmoid(blockdiag(W_a) x_t + b_a)          (recurrence gate)
+    i_t = sigmoid(blockdiag(W_x) x_t + b_x)          (input gate)
+    a_t = exp(-c * softplus(-Lambda) * r_t)          (a = sigmoid(Lambda))
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+Gates use block-diagonal weights with n_heads blocks (Griffin's design).
+The scan runs the reference's chunks step by step in torch ops (padded
+with a = 1, which keeps h); under autograd each chunk is recomputed in
+backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
+of its chunk body), as ``ssm._selective_scan`` does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models.config import LMConfig
+from repro_torch.models.layers import _gelu
+from repro_torch.models.ssm import _causal_conv
+from repro_torch.nn import ParamSpec
+
+RG_C = 8.0
+
+
+def rglru_spec(cfg: LMConfig):
+    d, lru, h = cfg.d_model, cfg.lru_width, cfg.n_heads
+    bs = lru // h  # gate block size
+    f32 = torch.float32
+    return {
+        "w_in": ParamSpec((d, lru), f32, ("embed", "mlp")),
+        "w_gate_branch": ParamSpec((d, lru), f32, ("embed", "mlp")),
+        "conv_w": ParamSpec((cfg.d_conv, lru), f32, (None, "mlp"),
+                            init="normal", scale=0.5),
+        "conv_b": ParamSpec((lru,), f32, ("mlp",), init="zeros"),
+        "w_a": ParamSpec((h, bs, bs), f32, ("heads", None, None)),
+        "b_a": ParamSpec((lru,), f32, ("mlp",), init="zeros"),
+        "w_x": ParamSpec((h, bs, bs), f32, ("heads", None, None)),
+        "b_x": ParamSpec((lru,), f32, ("mlp",), init="zeros"),
+        "lam": ParamSpec((lru,), f32, ("mlp",), init="rglru_lambda"),
+        "w_out": ParamSpec((lru, d), f32, ("mlp", "embed")),
+    }
+
+
+def _blockdiag(x, w, b, n_heads: int):
+    """x: (B, S, lru) -> block-diagonal linear per head + bias."""
+    B, S, lru = x.shape
+    bs = lru // n_heads
+    xh = x.reshape(B, S, n_heads, bs)
+    y = torch.einsum("bshi,hij->bshj", xh, w.to(x.dtype))
+    return y.reshape(B, S, lru) + b.to(x.dtype)
+
+
+def _lru_chunk(h, a_c, g_c):
+    """The steps of one chunk: (h after them, every step's h)."""
+    ys = []
+    # unbind: one backward op a chunk stacks the steps' grads
+    for a1, g1 in zip(a_c.unbind(1), g_c.unbind(1)):
+        h = a1 * h + g1
+        ys.append(h)
+    return h, torch.stack(ys, dim=1)
+
+
+def _lru_scan(a_t, gx, h0, chunk: int):
+    """h_t = a_t h_{t-1} + gx_t; a_t, gx: (B, S, lru) f32; h0: (B, lru).
+
+    Returns (y (B, S, lru), h_final)."""
+    B, S, lru = gx.shape
+    chunk = max(1, min(chunk, S))
+    pad = (-S) % chunk
+    if pad:  # padded steps have a = 1, gx = 0: h unchanged
+        a_t = F.pad(a_t, (0, 0, 0, pad), value=1.0)
+        gx = F.pad(gx, (0, 0, 0, pad))
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (a_t, gx, h0))
+    h = h0
+    ys = []
+    for c in range(0, S + pad, chunk):
+        args = (h, a_t[:, c:c + chunk], gx[:, c:c + chunk])
+        if remat:
+            h, y = checkpoint(_lru_chunk, *args, use_reentrant=False)
+        else:
+            h, y = _lru_chunk(*args)
+        ys.append(y)
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+def apply_rglru_block(
+    p,
+    x,
+    cfg: LMConfig,
+    conv_state: Optional[torch.Tensor] = None,
+    lru_state: Optional[torch.Tensor] = None,
+):
+    """Full Griffin recurrent block. x: (B, S, d).
+
+    Returns (out, (new_conv_state, new_lru_state)).
+    """
+    B = x.shape[0]
+    dt = cfg.dtype
+    x1 = x @ p["w_in"].to(dt)
+    x2 = _gelu(x @ p["w_gate_branch"].to(dt))
+    x1, new_conv = _causal_conv(x1, p["conv_w"], p["conv_b"],
+                                state=conv_state)
+    # --- RG-LRU ---
+    xf = x1.float()
+    r = torch.sigmoid(_blockdiag(xf, p["w_a"], p["b_a"], cfg.n_heads))
+    i = torch.sigmoid(_blockdiag(xf, p["w_x"], p["b_x"], cfg.n_heads))
+    log_a = -RG_C * r * F.softplus(-p["lam"])  # (B, S, lru)
+    a_t = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a_t * a_t, min=1e-12)) * (i * xf)
+    h0 = (lru_state if lru_state is not None
+          else torch.zeros((B, cfg.lru_width), dtype=torch.float32,
+                           device=x.device))
+    y, h = _lru_scan(a_t, gated, h0, cfg.scan_chunk)
+    out = (y.to(dt) * x2) @ p["w_out"].to(dt)
+    return out, (new_conv, h)

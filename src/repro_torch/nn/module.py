@@ -9,8 +9,7 @@ gives other numbers than the reference's threefry keys, so parity tests
 carry JAX parameters over with ``repro_torch.convert.lm_params_from_jax``.
 
 The logical axes map onto the ``(data, model)`` mesh through the rules
-of ``repro_torch.runtime.sharding``.  The initializer of the LM family
-still to port (``rglru_lambda``) raises.
+of ``repro_torch.runtime.sharding``.
 """
 from __future__ import annotations
 
@@ -31,7 +30,7 @@ class ParamSpec:
     dtype: Any = torch.float32
     logical_axes: tuple = ()
     init: str = "fan_in"  # fan_in | normal | zeros | ones | uniform_phase
-    #                      | embed | s4d_a_log
+    #                      | embed | s4d_a_log | rglru_lambda
     scale: float = 1.0
 
     def __post_init__(self):
@@ -67,6 +66,10 @@ def _initialize(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
         row = torch.log(torch.arange(1, state + 1, dtype=torch.float32,
                                      device=dev))
         return row.expand(spec.shape).to(spec.dtype).contiguous()
+    if spec.init == "rglru_lambda":  # a = sigmoid(L) uniform in [0.9, 0.999]
+        a = torch.rand(spec.shape, generator=gen, device=dev,
+                       dtype=torch.float32) * (0.999 - 0.9) + 0.9
+        return torch.log(a / (1.0 - a)).to(spec.dtype)
     raise ValueError(f"unknown init {spec.init!r}")
 
 

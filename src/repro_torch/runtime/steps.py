@@ -72,13 +72,25 @@ def serving_param_specs(cfg: LMConfig, param_dtype=None):
 
 
 # ----------------------------------------------------------------- steps
+def _split(tree, fn, depth: int) -> list:
+    """``tree``'s stacked leaves split ``depth`` axes deep into (nested)
+    lists of per-layer trees, ``fn`` applied to each layer's slice."""
+    n = tree_leaves(tree)[0].shape[0]
+    if depth == 1:
+        return [tree_map(lambda a: fn(a[i]), tree) for i in range(n)]
+    return [_split(tree_map(lambda a: a[i], tree), fn, depth - 1)
+            for i in range(n)]
+
+
 def _per_layer(tree, fn):
-    """``tree`` with ``fn`` applied to every leaf, the stacked "blocks"
-    split into a list of per-layer trees (``fn`` of each layer's slice)."""
-    out = {k: tree_map(fn, v) for k, v in tree.items() if k != "blocks"}
-    n = tree_leaves(tree["blocks"])[0].shape[0]
-    out["blocks"] = [tree_map(lambda a: fn(a[i]), tree["blocks"])
-                     for i in range(n)]
+    """``tree`` with ``fn`` applied to every leaf, each stacked group
+    (``lm.stack_depths``: "blocks", and vlm's "cross_blocks", hybrid's
+    "rec_blocks", "attn_blocks", "tail_rec") split into lists of
+    per-layer trees, nested for the two-axis groups."""
+    depths = lm.stack_depths(tree)
+    out = {k: tree_map(fn, v) for k, v in tree.items() if k not in depths}
+    for k, depth in depths.items():
+        out[k] = _split(tree[k], fn, depth)
     return out
 
 
@@ -89,8 +101,8 @@ def loss_and_grads(loss_fn, params, batch, accum_steps: int = 1,
 
     ``grads`` has ``params``' tree (stacked leaves as stacked tensors).
     Each layer's slice of a stacked leaf reaches ``loss_fn`` as a leaf of
-    its own, a view under ``params["blocks"]`` as a list of per-layer
-    trees; its gradient is copied into its slice of ``grads`` by a
+    its own, a view, each stacked group a list of per-layer trees
+    (``_per_layer``); its gradient is copied into its slice of ``grads`` by a
     post-accumulate hook and freed.  With ``accum_steps`` > 1 the batch
     splits along dim 0 into micro-batches whose grads are summed in
     ``accum_dtype``, then both sums are divided by ``accum_steps``.
@@ -221,13 +233,13 @@ def compile_train_step(
     placements are that ``torch.device`` (``device``, the CUDA card unless
     named), where the caller puts the state and each batch.  ``mesh`` is
     None or a mesh of one device; LM tensor/FSDP parallelism is ROADMAP
-    queue 1 item 11.  ``rules`` has nothing to place and is ignored.
+    queue 1 item 5.  ``rules`` has nothing to place and is ignored.
     ``donate=False`` runs the step on a copy of the state.
     """
     if mesh is not None and math.prod(mesh_shape(mesh).values()) != 1:
         raise NotImplementedError(
             "compile_train_step: a mesh beyond one device (LM tensor/FSDP "
-            "parallelism) is not ported yet (ROADMAP queue 1, item 11)")
+            "parallelism) is not ported yet (ROADMAP queue 1, item 5)")
     for name, s in batch_specs.items():
         if s.shape[0] % accum_steps:
             raise ValueError(f"batch {name} of {s.shape[0]} rows does not "

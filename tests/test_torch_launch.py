@@ -197,7 +197,7 @@ def test_resumes_a_state_the_reference_saved(tmp_path, monkeypatch, capsys):
 
 
 def test_mesh_beyond_1x1_is_refused():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         ttrain.main(BASE + ["--mesh", "2x1"])
 
 
@@ -239,3 +239,104 @@ def test_accumulation_splits_the_batch():
     assert abs(one[0] - two[0]) <= 1e-5 * one[0] and np.isfinite(two).all()
     with pytest.raises(ValueError, match="micro-batches"):
         _train(["--steps", "1", "--accum", "3"])
+
+
+# ------------------------------------------------ the moe, hybrid and vlm
+FAMILY_ARCHS = ("mixtral-8x7b", "recurrentgemma-9b", "llama-3.2-vision-11b")
+
+
+def _family_args(arch, steps, *extra):
+    # warmup 5: the first 5 steps' lr does not depend on --steps, so a
+    # 5-step run is the first half of a 10-step one
+    return ["--arch", arch, "--smoke", "--batch", "4", "--seq", "32",
+            "--lr", "1e-2", "--warmup", "5", "--log-every", "5",
+            "--steps", str(steps), "--device", "cpu", *extra]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_smoke_configs_train_and_resume_bitwise(arch, tmp_path,
+                                                       capsys):
+    """10 steps: a falling loss, and 5 + resume 5 the same losses bit for
+    bit."""
+    straight = ttrain.main(_family_args(arch, 10))
+    assert np.mean(straight[-3:]) < np.mean(straight[:3])
+    ck = str(tmp_path / "ck")
+    first = ttrain.main(_family_args(arch, 5, "--ckpt-dir", ck,
+                                     "--ckpt-every", "5"))
+    capsys.readouterr()
+    second = ttrain.main(_family_args(arch, 10, "--ckpt-dir", ck,
+                                      "--ckpt-every", "100"))
+    assert "[train] resuming from step 5" in capsys.readouterr().out
+    assert first + second == straight
+
+
+def _recording(monkeypatch):
+    """The launcher's step wrapped to keep each batch it is given."""
+    real = ttrain.steps_mod.compile_train_step
+    seen = []
+
+    def compile_train_step(*a, **kw):
+        fn, s_place, b_place, sspecs = real(*a, **kw)
+
+        def step(state, batch):
+            seen.append(batch)
+            return fn(state, batch)
+
+        return step, s_place, b_place, sspecs
+
+    monkeypatch.setattr(ttrain.steps_mod, "compile_train_step",
+                        compile_train_step)
+    return seen
+
+
+def test_mixtral_launcher_loss_carries_the_aux_term(monkeypatch):
+    """The first step's loss is lm_loss of the seeded init on the first
+    batch: the cross-entropy plus 0.01 times the layers' summed aux."""
+    from repro_torch.models import lm as tlm
+    from repro_torch.runtime import steps as tsteps
+    from repro_torch.tree import tree_map
+
+    seen = _recording(monkeypatch)
+    losses = ttrain.main(_family_args("mixtral-8x7b", 1, "--accum", "2"))
+    cfg = tget("mixtral-8x7b", smoke=True)
+    state = tsteps.init_train_state(cfg, torch.Generator().manual_seed(0),
+                                    ttrain.AdamW(lr=1e-2))
+    batch = tree_map(lambda t: t.clone(), seen[0])
+    with torch.no_grad():
+        halves = [{k: v.reshape(2, -1, *v.shape[1:])[i]
+                   for k, v in batch.items()} for i in range(2)]
+        parts = [tlm.forward(state["params"], h["tokens"], cfg) for h in
+                 halves]
+        xent = [tlm.chunked_xent(state["params"], x, h["labels"], cfg)
+                for (x, _), h in zip(parts, halves)]
+        aux = [float(a) for _, a in parts]
+    want = np.mean([float(x) + 0.01 * a for x, a in zip(xent, aux)])
+    assert min(aux) > 0
+    assert abs(losses[0] - want) <= 1e-5 * want
+    assert abs(losses[0] - np.mean([float(x) for x in xent])) > 1e-3
+
+
+def test_vlm_launcher_batch_carries_the_reference_vision_stub(monkeypatch):
+    """Every batch's ``vision`` is the reference launcher's draw, byte for
+    byte: ``default_rng(0).normal(0, 1, (batch, vision_seq, d_model))``
+    in float32."""
+    seen = _recording(monkeypatch)
+    losses = ttrain.main(_family_args("llama-3.2-vision-11b", 3))
+    cfg = jget("llama-3.2-vision-11b", smoke=True)
+    want = np.random.default_rng(0).normal(
+        0, 1, (4, cfg.vision_seq, cfg.d_model)).astype("float32")
+    assert len(seen) == 3 and all(np.isfinite(losses))
+    for b in seen:
+        assert sorted(b) == ["labels", "tokens", "vision"]
+        assert b["vision"].dtype == torch.float32
+        assert b["vision"].numpy().tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama-3.2-vision-11b"])
+def test_serve_cli_serves_the_family_smoke_configs(arch, capsys):
+    """launch/serve.py --device cpu; vlm with the zero vision K/V cache of
+    init_cache, as the reference's launcher serves it."""
+    n = tserve.main(["--arch", arch, "--smoke", "--slots", "3",
+                     "--requests", "5", "--prompt-len", "4", "--max-new",
+                     "5", "--cache-len", "32", "--device", "cpu"])
+    assert n == 25 and "[serve] 5/5 requests" in capsys.readouterr().out

@@ -1,4 +1,4 @@
-"""The port's LM serving slice (dense and ssm) against the JAX package.
+"""The port's LM serving slice (dense, ssm and audio) against the JAX package.
 
 Parameters come from the JAX package (``repro.models.lm.init``, numpy on
 the way over) through ``repro_torch.convert.lm_params_from_jax``; inputs
@@ -47,9 +47,8 @@ from repro_torch.tree import tree_leaves  # noqa: E402
 
 RTOL = 1e-5
 PORTED = ("qwen1.5-4b", "granite-8b", "glm4-9b", "qwen2.5-14b",
-          "falcon-mamba-7b")
-PENDING = ("mixtral-8x7b", "arctic-480b", "llama-3.2-vision-11b",
-           "musicgen-medium", "recurrentgemma-9b")
+          "falcon-mamba-7b", "mixtral-8x7b", "arctic-480b",
+          "llama-3.2-vision-11b", "musicgen-medium", "recurrentgemma-9b")
 
 
 def _rel(got, want) -> float:
@@ -115,19 +114,25 @@ def test_registered_configs_match_the_reference(arch, smoke):
 
 
 def test_registry_names_ported_and_pending_archs():
-    assert tconfig.list_archs() == sorted(PORTED)
-    for arch in PENDING:
-        assert arch in jconfig.list_archs()
-        with pytest.raises(NotImplementedError, match="step 13"):
-            tget(arch)
+    """All ten of the reference's LM architectures build, full and smoke
+    (their fields: test_registered_configs_match_the_reference); an
+    unknown arch raises KeyError, an unknown family ValueError."""
+    from repro.configs import LM_ARCHS
+
+    assert tconfig.list_archs() == sorted(PORTED) == sorted(LM_ARCHS)
+    for arch in PORTED:
+        for smoke in (False, True):
+            assert tlm.param_specs(tget(arch, smoke=smoke))
     with pytest.raises(KeyError, match="unknown arch"):
         tget("no-such-arch")
-    moe = dataclasses.replace(tget("granite-8b", smoke=True), family="moe")
-    for fn in (tlm.param_specs, lambda c: tlm.cache_specs(c, 1, 4)):
-        with pytest.raises(NotImplementedError, match="moe"):
-            fn(moe)
-    with pytest.raises(NotImplementedError, match="vlm"):
-        tattn.cross_attention({}, None, None, moe)
+    odd = dataclasses.replace(tget("granite-8b", smoke=True), family="odd")
+    tp = tlm.init(tget("granite-8b", smoke=True), torch.Generator())
+    toks = torch.zeros((1, 2), dtype=torch.long)
+    for fn in (tlm.param_specs, lambda c: tlm.cache_specs(c, 1, 4),
+               lambda c: tlm.forward(tp, toks, c),
+               lambda c: tlm.decode_step(tp, {}, toks[:, :1], 0, c)):
+        with pytest.raises(ValueError, match="unknown family odd"):
+            fn(odd)
 
 
 # ------------------------------------------------------------ param specs
@@ -170,8 +175,12 @@ def test_init_params_follows_the_specs():
     assert all(x.dtype == torch.float32 for x in tree_leaves(p))
     half = cast_tree(p, torch.bfloat16)
     assert all(x.dtype == torch.bfloat16 for x in tree_leaves(half))
-    with pytest.raises(ValueError, match="rglru_lambda"):
-        init_params({"p": ParamSpec((5,), init="rglru_lambda")},
+    lam = init_params({"p": ParamSpec((500,), init="rglru_lambda")},
+                      torch.Generator().manual_seed(0))["p"]
+    a = torch.sigmoid(lam)  # uniform in [0.9, 0.999], as the reference
+    assert float(a.min()) > 0.9 and float(a.max()) < 0.999
+    with pytest.raises(ValueError, match="unknown init"):
+        init_params({"p": ParamSpec((5,), init="no-such-init")},
                     torch.Generator())
 
 
@@ -394,7 +403,8 @@ def test_apply_mamba_prefill_and_decode_states_match_jax():
 
 
 # ------------------------------------------------------------ the model
-MODEL_ARCHS = ["qwen1.5-4b", "granite-8b", "glm4-9b", "falcon-mamba-7b"]
+MODEL_ARCHS = ["qwen1.5-4b", "granite-8b", "glm4-9b", "falcon-mamba-7b",
+               "musicgen-medium"]
 
 
 @pytest.mark.parametrize("arch", MODEL_ARCHS)
@@ -511,7 +521,16 @@ def test_serve_cli_on_the_cpu_and_its_refusals(capsys):
     with pytest.raises(NotImplementedError, match="multi-device"):
         tserve.main(["--arch", "qwen1.5-4b", "--smoke", "--mesh", "2x1",
                      "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="step 13"):
-        tserve.main(["--arch", "mixtral-8x7b", "--smoke", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tserve.main(["--arch", "qwen1.5-4b", "--smoke", "--mesh", "1x2",
+                     "--device", "cpu"])
+    capsys.readouterr()
+    n = tserve.main(["--arch", "mixtral-8x7b", "--smoke", "--slots", "2",
+                     "--requests", "3", "--prompt-len", "3", "--max-new",
+                     "4", "--device", "cpu"])
+    assert n == 12 and "[serve] 3/3 requests" in capsys.readouterr().out
     with pytest.raises(ValueError, match="missing"):
         lm_params_from_jax({"embed": {}}, device="cpu")
+    with pytest.raises(ValueError, match="no LM family"):
+        lm_params_from_jax({"embed": {}, "final_norm": {}, "rec_blocks": {}},
+                           device="cpu")

@@ -91,7 +91,7 @@ script exits non-zero without the final line:
 9. lm      — the LM serving slice with random parameters from seeded
    generators on the card, TF32 off: ``repro_torch.launch.serve.main``
    serves qwen1.5-4b (full width and depth, bf16 matmuls) at 8 slots, 24
-   requests, prompt 16, 32 new tokens, twice; a full-width depth-2 f32
+   requests, prompt 16, 32 new tokens, once; a full-width depth-2 f32
    copy holds one 16-token prefill against the CPU (SLICE_RTOL, argmax
    equal) and 16 decode steps against that prefill on the card; K6 runs
    through ``apply_rotary(use_pallas=True)`` on layer 0's q and k of a
@@ -126,7 +126,7 @@ script exits non-zero without the final line:
 11. lm_families — the audio, moe, hybrid and vlm LM families on the card
    at full width, bf16 matmuls over f32 parameters, no kernel on their
    path (as in the reference): ``serve.main`` (8 slots, 24 requests,
-   prompt 16, 32 new tokens, cache 128, twice: tokens/s and peak memory)
+   prompt 16, 32 new tokens, cache 128, once: tokens/s and peak memory)
    serves musicgen-medium, recurrentgemma-9b and llama-3.2-vision-11b at
    full depth, mixtral-8x7b at depth 8 of 32 and arctic-480b at depth 1
    of 35 (the f32 parameters of more do not fit 80 GB); the launcher
@@ -135,7 +135,7 @@ script exits non-zero without the final line:
    does (``--profile``: FILE.lmtrain_moe, FILE.lmtrain_hybrid); arctic's
    smoke config runs 8 launcher steps and 4 + resume 4, bitwise (one
    full-width arctic layer's training state is 225 GB).  At f32, batch 2,
-   seq 16 (musicgen depth 2, mixtral depth 1, recurrentgemma depth 5,
+   seq 16 (musicgen depth 2, mixtral depth 1, recurrentgemma depth 3,
    llama-vision depth 5 with its cross gates opened, arctic smoke):
    decode against prefill on the card (moe capacity lifted, vlm's xk/xv
    from the vision states; 1e-4 of the max), then logits, ``lm_loss``
@@ -189,6 +189,24 @@ script exits non-zero without the final line:
    rate.  Every hold is printed; the phase raises after the last if any
    failed.
 
+14. lm_mesh — LM tensor, data, sequence and expert parallelism over
+   ``(data, model)`` meshes of gloo ranks sharing the card (4 ranks, then
+   2): ``repro_torch.launch.serve.main --mesh 1x4`` and ``1x2`` serve
+   qwen1.5-4b at full width and depth (8 slots, 24 requests, prompt 16, 32
+   new tokens, cache 128; tokens/s and each rank's peak memory);
+   ``repro_torch.launch.train.main --mesh 2x2`` trains it at full width,
+   depth 8, batch 8 x seq 128 for 4 steps (steps/s, each rank's peak
+   memory); a musicgen-medium full-width depth-2 train state (moments
+   drawn) saved at 2x2 restores at 1x2 bit for bit (sha1 of every
+   gathered leaf), each rank's leaves their ``resolve_pspec`` blocks; f32
+   holds against one rank on the card (logits, loss, every gradient and
+   8 decode steps within 1e-5; decode within 1e-5 of the prefill) for
+   qwen1.5-4b at (2, 2) depth 2, falcon-mamba-7b at (1, 2) depth 2 and
+   mixtral-8x7b at (1, 2) depth 1 (4 experts a rank; the tokens routed
+   differently from one rank counted, their margins printed).  Zero K1-K7
+   launches over every rank.  With 2+ cards the serving launcher runs
+   again as NCCL ranks, one a card; on one card that path does not run.
+
 Phase 3 also holds K5 complex_mul (32x200x200 x (200, 200); at odd
 37x53, a[1:] and a[1:3] of an odd batch, whose starts are 8 bytes off 16),
 K6 rope (the qwen1.5-4b prefill shape (160, 2048, 128), bf16 and f32) and
@@ -201,9 +219,10 @@ to the bit and its batch row 1 alone equals the row inside its batch.
 
 Then one JSON line lists every kernel with its launches on the main path
 (DONN serving + training, the families, the design flow, LM serving,
-persistence, the mesh's ranks, LM training, the LM families; the last
-four also under ``persistence_launches``, ``mesh_launches``,
-``lm_train_launches`` and ``lm_families_launches``)
+persistence, the mesh's ranks, LM training, the LM families, the LM
+mesh's ranks; the last five also under ``persistence_launches``,
+``mesh_launches``, ``lm_train_launches``, ``lm_families_launches`` and
+``lm_mesh_launches``)
 and in the LM holds apart, its launches per training step on each engine,
 per family, per design part and per LM window, error and times, and the
 last line is the device record.
@@ -222,6 +241,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
@@ -241,6 +261,7 @@ import torch  # noqa: E402
 from repro_torch.checkpoint import AsyncCheckpointer  # noqa: E402
 from repro_torch.checkpoint import latest_step as ckpt_latest  # noqa: E402
 from repro_torch.checkpoint import restore as ckpt_restore  # noqa: E402
+from repro_torch.checkpoint import save as ckpt_save  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.donn import HYBRID_SLM_PRINTED  # noqa: E402
 from repro_torch.core import codesign, dse, dsl  # noqa: E402
@@ -309,7 +330,7 @@ ROPE_F32_RTOL = 1e-6  # K6 in f32: one rounding apart from the plain version
 # (|x1 c| + |x2 s|): the plain version rounds each bf16 product and the
 # result, the kernel rounds once
 SLICE_RTOL = 1e-4  # logits on the card vs the CPU copy (cuFFT vs pocketfft)
-WINDOW_S = 3.0  # seconds of closed-loop serving/training per row, repeat
+WINDOW_S = 1.0  # seconds of closed-loop serving/training per row, repeat
 REPEATS = 2
 PROFILE_BATCHES = 100
 PROFILE_CHUNKS = 5
@@ -1803,7 +1824,7 @@ def phase_families(dev, smi: str, profile) -> dict:
 # --------------------------------------------------------------------------
 DESIGN_K = 8  # candidates of the timed emulate_batch set
 DESIGN_B = 32  # inputs a candidate
-DESIGN_WINDOW_S = 1.5  # seconds a timed emulation row, repeat
+DESIGN_WINDOW_S = 0.75  # seconds a timed emulation row, repeat
 REMAT_DEPTH = 16  # the depth whose peak memory each remat policy gets
 _GUMBEL_NOISE = codesign.gumbel_noise
 
@@ -2398,7 +2419,7 @@ def phase_design(dev, smi: str, profile) -> dict:
     return out
 
 
-def _lm_serve(arch: str, smi: str, cfg=None, runs: int = 2) -> dict:
+def _lm_serve(arch: str, smi: str, cfg=None, runs: int = 1) -> dict:
     """``serve.main`` on the card ``runs`` times (``cfg``, a depth-cut
     config, in place of the registered one if given), the launch counters
     reset just before each; returns the launches, each run's tokens/s (the
@@ -3033,7 +3054,7 @@ LM_FAMILY_DEPTHS = {
     "musicgen-medium": (None, None, 2),
     "mixtral-8x7b": (8, 2, 1),
     "arctic-480b": (1, "smoke", "smoke"),
-    "recurrentgemma-9b": (None, 8, 5),
+    "recurrentgemma-9b": (None, 8, 4),  # hold: a period and a tail layer
     "llama-3.2-vision-11b": (None, 10, 5),
 }
 LM_FAMILY_HOLD = (2, 16)  # batch, seq of the card-vs-CPU holds (f32)
@@ -4245,6 +4266,472 @@ def phase_mesh(dev, smi: str) -> dict:
     return total
 
 
+# --------------------------------------------------------------------------
+# lm_mesh: LM tensor, data, sequence and expert parallelism over a
+# (data, model) mesh of ranks (gloo ranks sharing the one card)
+# --------------------------------------------------------------------------
+LM_MESH_TRAIN = (8, 4)  # depth, launcher steps of qwen1.5-4b at 2x2
+LM_MESH_HOLDS = {4: (("qwen1.5-4b", (2, 2), 2),),
+                 2: (("falcon-mamba-7b", (1, 2), 2),
+                     ("mixtral-8x7b", (1, 2), 1))}  # arch, mesh, depth
+LM_MESH_HOLD = (2, 16, 8)  # batch, seq, decode steps of the f32 holds
+LM_MESH_ELASTIC = ("musicgen-medium", 2)  # arch, depth of the elastic state
+LM_MESH_TIMEOUT_S = 900.0
+
+
+def _rank0() -> bool:
+    return torch.distributed.get_rank() == 0
+
+
+def _on(flags: list, dev) -> list:
+    """Launcher flags with ``--device`` set to ``dev``'s type."""
+    i = flags.index("--device")
+    return flags[:i + 1] + [dev.type] + flags[i + 2:]
+
+
+def _mesh_peak(run) -> tuple:
+    """(run's result, this rank's peak allocated GB during it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _mesh_serve(mesh: str, dev) -> dict:
+    """``serve.main --mesh`` at qwen1.5-4b's full width and depth on this
+    rank; rank 0's tokens/s (host clock of the slot loop)."""
+    real, seen = serve.serve_requests, {}
+
+    def recording(*a, **kw):
+        seen.update(real(*a, **kw))
+        return seen
+
+    serve.serve_requests = recording
+    try:
+        served, peak = _mesh_peak(lambda: serve.main(
+            ["--arch", "qwen1.5-4b", "--mesh", mesh]
+            + _on(LM_SERVE_FLAGS, dev)))
+    finally:
+        serve.serve_requests = real
+    torch.cuda.empty_cache()
+    return {"served": served, "tok_s": served / seen["seconds"],
+            "peak_gb": peak, "outputs": seen["outputs"]}
+
+
+@contextlib.contextmanager
+def _collective_clock(dev, spent: list):
+    """Inside, every ``torch.distributed`` all-reduce, all-gather and
+    reduce-scatter appends its host seconds to ``spent`` (the device
+    synchronised before and after: gloo stages CUDA tensors through the
+    host, so nothing overlaps it)."""
+    dist = torch.distributed
+    names = ("all_reduce", "all_gather", "reduce_scatter_tensor")
+    real = {n: getattr(dist, n) for n in names}
+
+    def timed(fn):
+        def run(*a, **kw):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            spent.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for n in names:
+        setattr(dist, n, timed(real[n]))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(dist, n, real[n])
+
+
+def _mesh_train(tmp: str, dev) -> dict:
+    """``lm_train.main --mesh 2x2`` on qwen1.5-4b at full width, depth
+    LM_MESH_TRAIN[0]; each step's seconds, the seconds its collectives
+    took on this rank, and this rank's peak memory."""
+    depth, n = LM_MESH_TRAIN
+    cfg = dataclasses.replace(lm_config("qwen1.5-4b"), n_layers=depth)
+    real_cfg, real_compile = lm_train.get_config, lm_steps.compile_train_step
+    lm_train.get_config = lambda arch, smoke=False: cfg
+    path = os.path.join(tmp, "train_metrics.json")
+    gloo = []
+
+    def compile_train_step(*a, **kw):
+        fn, s_place, b_place, sspecs = real_compile(*a, **kw)
+
+        def step(state, batch):
+            spent = []
+            with _collective_clock(dev, spent):
+                out = fn(state, batch)
+                float(out[1]["loss"])
+            gloo.append(sum(spent))
+            return out
+
+        return step, s_place, b_place, sspecs
+
+    lm_steps.compile_train_step = compile_train_step
+    try:
+        losses, peak = _mesh_peak(lambda: lm_train.main(
+            ["--arch", "qwen1.5-4b", "--mesh", "2x2", "--steps", str(n),
+             "--metrics-out", path] + _on(LM_TRAIN_FLAGS, dev)))
+    finally:
+        lm_train.get_config = real_cfg
+        lm_steps.compile_train_step = real_compile
+    torch.cuda.empty_cache()
+    out = {"peak_gb": peak, "losses": losses, "params": _n_params(cfg),
+           "gloo_s": gloo}
+    if _rank0():
+        out["step_seconds"] = json.load(open(path))["step_seconds"]
+    return out
+
+
+def _elastic_cfg():
+    arch, depth = LM_MESH_ELASTIC
+    return dataclasses.replace(lm_config(arch), n_layers=depth)
+
+
+def _mesh_elastic_save(dev, tmp: str) -> dict:
+    """A train state drawn at 2x2 (random moments too) and saved under
+    the mesh; rank 0 returns each leaf's digest as saved."""
+    cfg = _elastic_cfg()
+    mesh = shd.make_mesh_2d(2, 2, device=dev)
+    sspecs = lm_steps.train_state_specs(cfg)
+    place = shd.tree_shardings(sspecs, mesh)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    drawn = {k: v if k in ("params", "step") else tree_map(
+        lambda p: dataclasses.replace(p, init="normal", scale=1e-3), v)
+        for k, v in sspecs.items()}  # moments drawn too, not zeros
+    state = init_params(drawn, gen, mesh)
+    t0 = time.perf_counter()
+    ckpt_save(os.path.join(tmp, "elastic"), 1, state, mesh=mesh,
+              pspecs=place)
+    sec = time.perf_counter() - t0
+    whole = shd.gather_tree(state, place, mesh)
+    return {"digests": [_digest(t) for t in tree_leaves(whole)],
+            "save_s": sec, "bytes": sum(t.numel() * t.element_size()
+                                        for t in tree_leaves(whole))}
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha1(t.detach().reshape(-1).contiguous()
+                        .view(torch.uint8).cpu().numpy().tobytes()
+                        ).hexdigest()
+
+
+def _mesh_elastic_restore(dev, tmp: str) -> dict:
+    """The 2x2 state restored at 1x2: this rank's leaf shapes against its
+    resolve_pspec blocks, and the gathered leaves' digests."""
+    cfg = _elastic_cfg()
+    mesh = shd.make_mesh_2d(1, 2, device=dev)
+    sspecs = lm_steps.train_state_specs(cfg)
+    place = shd.tree_shardings(sspecs, mesh)
+    t0 = time.perf_counter()
+    state = ckpt_restore(os.path.join(tmp, "elastic"), 1,
+                         shd.abstract_like(sspecs), device=dev, mesh=mesh,
+                         pspecs=place)
+    sec = time.perf_counter() - t0
+    want = [tuple(t.shape) for t in tree_leaves(
+        shd.sharded_zeros(sspecs, mesh, device="meta"))]
+    whole = shd.gather_tree(state, place, mesh)
+    return {"digests": [_digest(t) for t in tree_leaves(whole)],
+            "restore_s": sec,
+            "shapes_ok": [tuple(t.shape) for t in tree_leaves(state)] == want}
+
+
+def _block_errs(got, want, spec, mesh, top=None) -> float:
+    """max|this rank's block - its block of ``want``| over max|want| (or
+    ``top``)."""
+    ref = shd.local_block(want, spec, mesh)
+    return float((got - ref).abs().max()) / (
+        top if top is not None else max(float(want.abs().max()), 1e-30))
+
+
+def _mesh_hold(dev, arch: str, shape, depth: int) -> dict:
+    """f32 at full width, ``depth`` layers, batch 2 x seq 16: the sharded
+    prefill logits, lm_loss, every gradient and LM_MESH_HOLD[2] decode
+    steps at ``shape`` against one rank on the card.  Every rank runs the
+    one-rank reference too and compares its own blocks (no gather of the
+    sharded results); the report takes the worst rank."""
+    b, s, n_dec = LM_MESH_HOLD
+    cfg = dataclasses.replace(lm_config(arch), n_layers=depth,
+                              dtype=torch.float32)
+    dcfg = (dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+            if cfg.family == "moe" else cfg)
+    mesh = shd.make_mesh_2d(*shape, device=dev)
+    rng = np.random.default_rng(13)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)))
+             .to(dev) for k in ("tokens", "labels")}
+    specs = {k: type("Spec", (), {"shape": tuple(v.shape)})
+             for k, v in batch.items()}
+    p_place = shd.tree_shardings(lm.param_specs(cfg), mesh)
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(7),
+                     mesh=mesh)
+    fn, _, b_place, _ = lm_steps.compile_prefill_step(cfg, mesh, specs,
+                                                      device=dev)
+    local_b = shd.local_tree(batch, b_place, mesh)
+    lg_spec = lm_steps.logits_sharding(cfg, mesh, b)
+    real, routes = moe.route, []
+
+    def recording(p, xg, c):
+        out = real(p, xg, c)
+        routes.append(out)
+        return out
+
+    moe.route = recording
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = fn(params, local_b)
+        with shd.activation_sharding(mesh):
+            loss, grads = lm_steps.loss_and_grads(
+                lambda p, bb: lm.lm_loss(p, bb, cfg), params, local_b,
+                pspecs=p_place, mesh=mesh)
+        sharded_routes = list(routes)
+        dfn, _, _, cspecs = lm_steps.compile_decode_step(dcfg, mesh, b, s,
+                                                         device=dev)
+        cache = shd.sharded_zeros(cspecs, mesh, device=dev)
+        tok_place = shd.batch_sharding(mesh, 2, batch_size=b)
+        dec = []
+        with torch.no_grad():
+            for t in range(n_dec):
+                lg, cache = dfn(params, cache, shd.local_block(
+                    batch["tokens"][:, t:t + 1], tok_place, mesh), t)
+                dec.append(lg[:, 0])
+        dec = torch.stack(dec, 1)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        del params, cache
+        routes.clear()
+        # one rank: the same draws whole, on the card (every rank)
+        one = lm.init(cfg, torch.Generator(device=dev).manual_seed(7))
+        with torch.no_grad():
+            want_logits = lm.logits_fn(one, batch["tokens"], cfg)
+        want_loss, want_grads = lm_steps.loss_and_grads(
+            lambda p, bb: lm.lm_loss(p, bb, cfg), one, batch)
+        one_routes = list(routes)
+        cache = lm.init_cache(dcfg, b, s, device=dev)
+        want_dec = []
+        with torch.no_grad():
+            for t in range(n_dec):
+                want_dec.append(lm.decode_step(
+                    one, cache, batch["tokens"][:, t:t + 1], t, dcfg)[0][:, 0])
+            prefill = (want_logits if cfg.family != "moe" else
+                       lm.logits_fn(one, batch["tokens"], dcfg))[:, :n_dec]
+        want_dec = torch.stack(want_dec, 1)
+    finally:
+        moe.route = real
+    top = max(float(w.abs().max()) for w in tree_leaves(want_grads))
+    grad_rel = {}
+    for path, g, w, spec in zip(tree_paths(want_grads), tree_leaves(grads),
+                                tree_leaves(want_grads),
+                                _spec_leaves(p_place)):
+        # a leaf whose gradient is zero in exact arithmetic (bk) against
+        # the largest gradient, as the lm_train phase holds it
+        zero = any(z in path for z in ZERO_GRAD_LEAVES)
+        grad_rel[path] = _block_errs(g, w, spec, mesh, top if zero else None)
+    parted, margins = 0, []
+    if cfg.family == "moe":
+        k = cfg.top_k
+        for (probs, _, idx), (_, _, oidx) in zip(sharded_routes, one_routes):
+            differ = (idx.sort(-1).values != oidx.sort(-1).values).any(-1)
+            tops = probs.sort(-1, descending=True).values
+            parted += int(differ.sum())
+            margins += (tops[..., k - 1] - tops[..., k])[differ].tolist()
+    dec_spec = lg_spec[:1] + (None,) + lg_spec[2:]
+    return {"arch": arch, "depth": depth, "mesh": shape,
+            "params": _n_params(cfg),
+            "logits": _block_errs(logits, want_logits, lg_spec, mesh),
+            "loss": abs(float(loss) - float(want_loss)) / float(want_loss),
+            "grads": max(grad_rel.values()),
+            "worst_grad": max(grad_rel, key=grad_rel.get),
+            "decode": _block_errs(dec, want_dec, dec_spec, mesh),
+            "decode_prefill": _block_errs(dec, prefill, dec_spec, mesh),
+            "parted": parted, "margins": margins, "ms": ms}
+
+
+def _spec_leaves(place) -> list:
+    """The spec tuples of a placement tree, in ``tree_leaves`` order."""
+    if isinstance(place, dict):
+        return [s for k in sorted(place) for s in _spec_leaves(place[k])]
+    return [place]
+
+
+def _lm_mesh_rank(rank: int, world: int, tmp: str,
+                  device_type: str = "cuda") -> dict:
+    """Every lm_mesh case of a world of ``world`` gloo ranks on the card
+    (``device_type`` "cpu" rehearses it); each rank's K1-K7 launches over
+    all of them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the ranks share the host's cores: one intra-op thread each, so no
+    # rank's idle pool spins on the cores another rank's gloo needs
+    torch.set_num_threads(1)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device(device_type))
+    ops.reset_launch_counts()
+    out = {}
+    if world == 4:
+        out["train"] = _mesh_train(tmp, dev)
+        out["serve"] = _mesh_serve("1x4", dev)
+        out["elastic"] = _mesh_elastic_save(dev, tmp)
+    else:
+        out["serve"] = _mesh_serve("1x2", dev)
+        out["elastic"] = _mesh_elastic_restore(dev, tmp)
+    out["holds"] = [_mesh_hold(dev, arch, shape, depth)
+                    for arch, shape, depth in LM_MESH_HOLDS[world]]
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    out["rank"] = rank
+    return out
+
+
+def _lm_mesh_report(world: int, ranks: list, smi: str, bad: list,
+                    label: str) -> None:
+    tag = f"[lm_mesh] {world} {label}"
+
+    def hold(what, ok, line):
+        print(f"{tag}: {what}: {line}{'' if ok else '  FAILED'}")
+        if not ok:
+            bad.append(f"{world} ranks: {what}")
+
+    r0 = ranks[0]
+    peaks = [round(r["serve"]["peak_gb"], 2) for r in ranks]
+    sv = r0["serve"]
+    hold(f"qwen1.5-4b serving at 1x{world} (full width and depth, "
+         f"{lm_config('qwen1.5-4b').dtype} matmuls)",
+         sv["served"] == 24 * 32,
+         f"{sv['served']} tokens, {sv['tok_s']:.1f} tok/s (8 slots, 24 "
+         f"requests, prompt 16, 32 new tokens, cache 128); each rank's peak "
+         f"memory {peaks} GB ({smi})")
+    if "train" in r0:
+        tr = r0["train"]
+        secs = tr["step_seconds"]
+        timed = secs[1:]
+        sec = float(np.median(timed))
+        losses = tr["losses"]
+        ok = len(losses) == LM_MESH_TRAIN[1] and all(map(math.isfinite,
+                                                         losses))
+        share = [round(g / t, 3) for g, t in zip(tr["gloo_s"][1:], timed)]
+        hold(f"qwen1.5-4b training at 2x2 (full width, depth "
+             f"{LM_MESH_TRAIN[0]}, {tr['params'] / 1e9:.3f}B params, batch 8 "
+             f"x seq 128)", ok,
+             f"losses {[round(v, 4) for v in losses]}; steps/s {1 / sec:.3f} "
+             f"(median of steps {[round(t, 3) for t in timed]} s; the first, "
+             f"{secs[0]:.3f} s, apart), tokens/s {LM_TRAIN_TOKENS / sec:.1f}; "
+             f"rank 0's collectives (host clock, device synchronised) "
+             f"{[round(g, 3) for g in tr['gloo_s'][1:]]} s, a share "
+             f"{share} of those steps; each rank's peak memory "
+             f"{[round(r['train']['peak_gb'], 2) for r in ranks]} GB ({smi})")
+    el = r0["elastic"]
+    if "save_s" in el:
+        print(f"{tag}: elastic state ({LM_MESH_ELASTIC[0]} full width, depth "
+              f"{LM_MESH_ELASTIC[1]}, params and random moments, "
+              f"{el['bytes'] / 1e9:.3f} GB) saved at 2x2 in "
+              f"{el['save_s']:.2f} s ({smi})")
+    for i, h in enumerate(r0["holds"]):
+        every = [r["holds"][i] for r in ranks]
+        worst = max(every, key=lambda x: x["grads"])
+        h = {**h, **{k: max(x[k] for x in every) for k in (
+            "logits", "loss", "grads", "decode", "decode_prefill")},
+             "worst_grad": worst["worst_grad"]}
+        what = (f"{h['arch']} f32 {h['depth']} layers "
+                f"({h['params'] / 1e9:.3f}B params) at {h['mesh']} vs one "
+                f"rank on the card")
+        line = (f"worst rank: logits {h['logits']:.3e}, loss "
+                f"{h['loss']:.3e}, grads {h['grads']:.3e} (worst "
+                f"{h['worst_grad']}), {LM_MESH_HOLD[2]} decode steps "
+                f"{h['decode']:.3e} (tol {MESH_RTOL:g}); decode vs the "
+                f"one-rank prefill {h['decode_prefill']:.3e} (tol "
+                f"{MESH_RTOL:g}); sharded ms {h['ms']:.1f}")
+        if h["arch"].startswith("mixtral"):
+            line += (f"; tokens routed to another expert set than on one "
+                     f"rank: {h['parted']}, their top-2 margins "
+                     f"{h['margins']}")
+        hold(what, max(h["logits"], h["loss"], h["grads"], h["decode"],
+                       h["decode_prefill"]) <= MESH_RTOL, line)
+
+
+def _lm_mesh_nccl(smi: str) -> None:
+    """With 2+ cards: the launchers at one NCCL rank a card (they pick
+    NCCL themselves when the cards suffice)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[lm_mesh] {n} card: the NCCL path (one rank a card) did not "
+              "run; every mesh above ran as gloo ranks sharing the card")
+        return
+    m = min(n, 4)
+    t0 = time.perf_counter()
+    served = serve.main(["--arch", "qwen1.5-4b", "--mesh", f"1x{m}"]
+                        + LM_SERVE_FLAGS)
+    print(f"[lm_mesh] NCCL 1x{m}: qwen1.5-4b served {served} tokens in "
+          f"{time.perf_counter() - t0:.1f}s ({smi})")
+
+
+def phase_lm_mesh(dev, smi: str) -> dict:
+    """LM training and serving over (data, model) meshes of gloo ranks
+    sharing the card: qwen1.5-4b served at 1x2 and 1x4 and trained at 2x2,
+    an elastic checkpoint 2x2 -> 1x2, f32 holds against one rank; returns
+    the K1-K7 launches summed over every rank (zero: the path reaches no
+    kernel, as in the reference)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"[lm_mesh] at the start: host load average "
+          f"{[round(v, 2) for v in os.getloadavg()]} on {os.cpu_count()} "
+          f"cores, {len(threading.enumerate())} threads and "
+          f"{len(multiprocessing.active_children())} child processes in "
+          f"this process, {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+          f"reserved on the card by it")
+    bad, total = [], dict.fromkeys(ops.KERNELS, 0)
+    tmp = tempfile.mkdtemp(prefix="lm_mesh_")
+    try:
+        for world in (4, 2):
+            t0 = time.perf_counter()
+            label = _mesh_label(world, "gloo")
+            ranks = spawn_ranks(_lm_mesh_rank, world, (world, tmp),
+                                device_type="cuda", backend="gloo",
+                                timeout=LM_MESH_TIMEOUT_S)
+            for r in ranks:
+                _add(total, r["launches"])
+            _lm_mesh_report(world, ranks, smi, bad, label)
+            if world == 2:
+                el = ranks[0]["elastic"]
+                same = el["digests"] == saved
+                ok = same and el["shapes_ok"]
+                print(f"[lm_mesh] elastic restore of the 2x2 state at 1x2: "
+                      f"every leaf bit for bit the saved one {same}, each "
+                      f"rank's leaves its resolve_pspec block "
+                      f"{el['shapes_ok']}; restore {el['restore_s']:.2f} s "
+                      f"({smi}){'' if ok else '  FAILED'}")
+                if not ok:
+                    bad.append("elastic restore")
+                same = (ranks[0]["serve"]["outputs"]
+                        == outputs_1x4)
+                print(f"[lm_mesh] greedy tokens at 1x2 equal those at 1x4: "
+                      f"{same} (bf16 matmuls; printed, not held)")
+            else:
+                saved = ranks[0]["elastic"]["digests"]
+                outputs_1x4 = ranks[0]["serve"]["outputs"]
+            print(f"[lm_mesh] {world} ranks: "
+                  f"{time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _lm_mesh_nccl(smi)
+    print(f"[lm_mesh] K1-K7 launches summed over every rank of the phase: "
+          f"{total} (the reference's sharded LM path reaches no Pallas "
+          f"kernel either); phase {time.perf_counter() - t_phase:.1f}s")
+    if any(total.values()):
+        bad.append(f"launches {total}")
+    if bad:
+        raise AssertionError("lm_mesh holds failed: " + "; ".join(bad))
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="FILE", default=None,
@@ -4276,6 +4763,7 @@ def main(argv=None) -> int:
     lm_families = phase_lm_families(dev, smi, args.profile)
     persistence = phase_persistence(dev, smi)
     mesh = phase_mesh(dev, smi)
+    lm_meshes = phase_lm_mesh(dev, smi)
     kernels = []
     for name in ops.KERNELS:
         r = rows[name]
@@ -4286,8 +4774,8 @@ def main(argv=None) -> int:
             "replaces": replaces,
             # the main path: DONN serving and training, the advanced
             # families, the design flow, LM serving, persistence and the
-            # fleet, the mesh's ranks, LM training and the LM families
-            # (none); the LM holds
+            # fleet, the mesh's ranks, LM training, the LM families and
+            # the LM mesh's ranks (none); the LM holds
             # (K6 on q/k, K7 on the mixer tensors) apart
             "launches": (launches[name] + train["counted"][name]
                          + sum(f[name] for f in families.values())
@@ -4295,7 +4783,8 @@ def main(argv=None) -> int:
                          + sum(v for w, v in lm_launches.items()
                                if w.startswith("lm_serve"))
                          + persistence[name] + mesh[name]
-                         + lm_training[name] + lm_families[name]),
+                         + lm_training[name] + lm_families[name]
+                         + lm_meshes[name]),
             "hold_launches": sum(v for w, v in lm_launches.items()
                                  if w.startswith("lm_hold")),
             "serve_launches": launches[name],
@@ -4308,6 +4797,7 @@ def main(argv=None) -> int:
             "mesh_launches": mesh[name],
             "lm_train_launches": lm_training[name],
             "lm_families_launches": lm_families[name],
+            "lm_mesh_launches": lm_meshes[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -25,6 +25,12 @@ A save takes a host copy of every leaf first (``_snapshot``), so a tensor
 mutated in place after ``AsyncCheckpointer.save`` returns cannot reach the
 file.  ``restore`` places the leaves on ``device``, the CUDA card unless
 the caller names another.
+
+Under a mesh (``mesh=`` and the state's spec tuples ``pspecs=``, as
+``runtime.steps.compile_train_step`` places a sharded state) a save
+gathers one leaf at a time to rank 0, which alone writes the same format;
+a restore reads each leaf on every rank and keeps the rank's block, so a
+state saved on one mesh restores on any other (elastic restore).
 """
 from __future__ import annotations
 
@@ -38,9 +44,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_leaves, tree_paths, tree_unflatten
+from repro_torch.runtime.sharding import gather_leaf, local_block
+from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 
 CHUNK_BYTES = 64 << 20
 BF16 = "bfloat16"
@@ -71,10 +79,33 @@ def _host_leaf(leaf) -> tuple:
     return arr, str(arr.dtype)
 
 
-def _snapshot(state) -> list:
-    """[(path, array, dtype string)] for every leaf of ``state``."""
-    return [(name, *_host_leaf(leaf))
-            for name, leaf in zip(tree_paths(state), tree_leaves(state))]
+def _spec_list(tree, pspecs) -> list:
+    """The spec tuple of each leaf of ``tree``, in ``tree_leaves`` order."""
+    out = []
+    tree_map(lambda _, spec: out.append(spec), tree, pspecs)
+    return out
+
+
+def _rank0(mesh) -> bool:
+    return mesh is None or dist.get_rank() == 0
+
+
+def _snapshot(state, mesh=None, pspecs=None) -> list:
+    """[(path, array, dtype string)] for every leaf of ``state``; under a
+    mesh each leaf gathered whole in turn (a collective on every rank),
+    the host copies kept by rank 0 only (other ranks get [])."""
+    if mesh is None:
+        return [(name, *_host_leaf(leaf))
+                for name, leaf in zip(tree_paths(state), tree_leaves(state))]
+    out = []
+    keep = _rank0(mesh)
+    for name, leaf, spec in zip(tree_paths(state), tree_leaves(state),
+                                _spec_list(state, pspecs)):
+        whole = gather_leaf(leaf, spec, mesh)
+        if keep:
+            out.append((name, *_host_leaf(whole)))
+        del whole
+    return out
 
 
 def _save_chunk(path, chunk: np.ndarray):
@@ -129,12 +160,24 @@ def _commit(ckpt_dir, step: int, snapshot: list, keep: int,
 
 
 def save(ckpt_dir, step: int, state, *, keep: int = 3,
-         verify: bool = True) -> pathlib.Path:
-    """Blocking save with atomic commit. Returns the final directory.
+         verify: bool = True, mesh=None, pspecs=None):
+    """Blocking save with atomic commit. Returns the final directory (None
+    on the ranks other than 0 under a mesh).
 
     ``state`` is a tree (``repro_torch.tree``) of tensors, numpy arrays
-    and Python scalars on any device."""
-    return _commit(ckpt_dir, step, _snapshot(state), keep, verify)
+    and Python scalars on any device; under ``mesh`` this rank's blocks,
+    placed by ``pspecs``."""
+    snapshot = _snapshot(state, mesh, pspecs)
+    final = (_commit(ckpt_dir, step, snapshot, keep, verify)
+             if _rank0(mesh) else None)
+    _barrier(mesh)
+    return final
+
+
+def _barrier(mesh) -> None:
+    """Every rank waits for rank 0's commit before it reads the store."""
+    if mesh is not None:
+        dist.barrier()
 
 
 def _write_latest(ckpt_dir: pathlib.Path, name: str):
@@ -202,10 +245,11 @@ def _to_tensor(arr: np.ndarray, dtype: str, dev: torch.device):
 
 
 def restore(ckpt_dir, step: int, target_tree, *, device=None,
-            verify: bool = True):
+            verify: bool = True, mesh=None, pspecs=None):
     """Restore into the structure of ``target_tree`` (values ignored), each
     leaf a tensor of its saved dtype and shape on ``device`` (the CUDA card
-    by default).
+    by default); under ``mesh``, this rank's block of each leaf as
+    ``pspecs`` places it, whatever mesh wrote the checkpoint.
 
     ``verify`` (default on) recomputes each chunk's crc32 against the
     manifest and raises ``IOError`` on a mismatch; pass ``verify=False``
@@ -220,8 +264,10 @@ def restore(ckpt_dir, step: int, target_tree, *, device=None,
             f"checkpoint has {len(manifest['leaves'])} leaves, "
             f"target expects {n_target}"
         )
+    specs = (_spec_list(target_tree, pspecs) if mesh is not None
+             else [None] * n_target)
     out = []
-    for entry in manifest["leaves"]:
+    for entry, spec in zip(manifest["leaves"], specs):
         shape = tuple(entry["shape"])
         dtype = _np_dtype(entry["dtype"])
         arr = np.empty(shape, dtype)
@@ -236,6 +282,8 @@ def restore(ckpt_dir, step: int, target_tree, *, device=None,
                 arr = chunk.copy()
             else:
                 arr[ch["row0"]: ch["row1"]] = chunk
+        if spec is not None:
+            arr = local_block(torch.from_numpy(arr), spec, mesh).numpy().copy()
         out.append(_to_tensor(arr, entry["dtype"], dev))
     return tree_unflatten(target_tree, out)
 
@@ -249,15 +297,22 @@ class AsyncCheckpointer:
     ``save`` or ``wait``.
     """
 
-    def __init__(self, ckpt_dir, keep: int = 3):
+    def __init__(self, ckpt_dir, keep: int = 3, *, mesh=None, pspecs=None):
+        """Under ``mesh`` (``pspecs``: the state's spec tuples) each save
+        gathers the state leaf by leaf on the caller's thread, rank 0
+        commits it, and ``wait`` holds every rank until the commit is
+        done."""
         self.ckpt_dir = pathlib.Path(ckpt_dir)
         self.keep = keep
+        self.mesh, self.pspecs = mesh, pspecs
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     def save(self, step: int, state):
         self.wait()
-        snapshot = _snapshot(state)  # consistent host copy
+        snapshot = _snapshot(state, self.mesh, self.pspecs)
+        if not _rank0(self.mesh):
+            return
 
         def work():
             try:
@@ -275,3 +330,4 @@ class AsyncCheckpointer:
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+        _barrier(self.mesh)

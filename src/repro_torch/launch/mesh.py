@@ -1,10 +1,14 @@
 """Mesh construction for the launchers (port of ``repro.launch.mesh``).
 
 Thin wrappers over ``repro_torch.runtime.sharding.make_mesh_2d``: a 2-D
-``("data", "model")`` ``DeviceMesh`` over the ranks of the process group.
-The reference's TPU constants (its roofline's peak rates) and its
-512-chip production mesh belong to the dry-run tools, which are not
-ported yet (ROADMAP queue 1, item 6).
+``("data", "model")`` ``DeviceMesh`` over the ranks of the process group,
+the mesh that ``launch/train.py`` and ``launch/serve.py`` build for
+``--mesh DxM`` (batch and FSDP over ``data``; heads, ``mlp``, experts,
+vocabulary and the sequence between layers over ``model``).  The
+launchers spawn their own ranks when no process group is up.  The
+reference's TPU constants (its roofline's peak rates) and its 512-chip
+production mesh belong to the dry-run tools, which are not ported yet
+(ROADMAP queue 1, item 6).
 """
 from __future__ import annotations
 

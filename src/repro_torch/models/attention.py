@@ -9,12 +9,23 @@ in f32), and ``p_bf16`` rounding the probabilities and values to bf16
 before the PV product.  ``scaled_dot_product_attention`` is not used: it
 computes another function (no chunked rescaling, its own masking).
 
-The reference's sharding hints (``constrain``) have no counterpart on one
-card and are dropped.  ``cross_attention`` (vlm) attends over vision
-states that may be float32 under a bf16 model, as the reference's
-launcher feeds them: it computes in the promoted type where the
-reference's mixed operands promote (JAX promotes ``f32 @ bf16`` to f32,
-torch refuses it).
+On an LM mesh (``repro_torch.runtime.sharding.context()``) training and
+prefill attention enter with the whole sequence and run this rank's
+query heads (``n_heads`` over ``model``) against the KV heads they group
+onto: the local ``wk``/``wv`` columns when ``n_kv_heads`` divides the
+model degree, else the gathered projection's heads picked per query head;
+``wo`` is row-parallel and the output leaves through ``MeshContext.exit``.
+Decode keeps the cache's placement: with ``kv_heads`` over ``model`` each
+rank decodes its own heads as training does; with the ``head`` fallback
+on ``head_dim`` it follows the reference's ``constrain`` hints: q and the
+new K/V are cut to the cache's block, the scores of a ``head_dim`` block
+are summed over ``model`` (the cache is never gathered), and the heads'
+outputs are gathered for the row-parallel ``wo``.  ``cross_attention``
+(vlm) attends over vision states that may be float32 under a bf16 model,
+as the reference's launcher feeds them: it computes in the promoted type
+where the reference's mixed operands promote (JAX promotes ``f32 @ bf16``
+to f32, torch refuses it).  Off a mesh the same code runs on the
+one-device context, whose parts are whole and collectives identities.
 """
 from __future__ import annotations
 
@@ -25,6 +36,8 @@ import torch
 from repro_torch.models.config import LMConfig
 from repro_torch.models.layers import apply_rotary, rope_angles
 from repro_torch.nn import ParamSpec
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.collectives import all_gather_dim, psum
 
 NEG_INF = -1e30
 
@@ -50,23 +63,82 @@ def attention_spec(cfg: LMConfig, cross: bool = False):
     return spec
 
 
-def qkv_proj(p, x, cfg: LMConfig):
-    """x (B, S, d) -> q (B,S,H,Dh), k/v (B,S,KV,Dh)."""
+# ------------------------------------------------------------- projections
+def qkv_proj(p, x, cfg: LMConfig, kv_x=None, cross: bool = False):
+    """x (B, S, d) -> q (B, S, H, Dh), k/v (B, Skv, KV, Dh), K/V from
+    ``kv_x`` when given (the vision states).  On a mesh ``x`` is the whole
+    sequence, q this rank's query heads and k/v the KV heads they group
+    onto: this rank's KV heads when ``n_kv_heads`` divides the model
+    degree, else one KV head a query head (picked from the gathered
+    projection)."""
+    ctx = shd.context()
     dt = cfg.dtype
-    B, S, _ = x.shape
+    spec = attention_spec(cfg, cross=cross)
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    return (
-        q.reshape(B, S, H, Dh),
-        k.reshape(B, S, KV, Dh),
-        v.reshape(B, S, KV, Dh),
-    )
+    h_lo, h_hi = ctx.part(H, "n_heads")
+    m = ctx.size("model")
+    B, S, _ = x.shape
+    kv_src = x if kv_x is None else kv_x
+
+    def proj(src, w, b, dim):
+        out = src @ ctx.model_part(p[w], spec[w], dim).to(dt).to(src.dtype)
+        if cfg.qkv_bias and not cross:
+            out = out + ctx.model_part(p[b], spec[b],
+                                       None if dim is None else 0).to(dt)
+        return out
+
+    q = proj(x, "wq", "bq", 1).reshape(B, S, h_hi - h_lo, Dh)
+    Skv = kv_src.shape[1]
+    if KV % m == 0:
+        k = proj(kv_src, "wk", "bk", 1).reshape(B, Skv, KV // m, Dh)
+        v = proj(kv_src, "wv", "bv", 1).reshape(B, Skv, KV // m, Dh)
+        return q, k, v
+    G = H // KV
+    idx = torch.tensor([h // G for h in range(h_lo, h_hi)], device=x.device)
+    k = proj(kv_src, "wk", "bk", None).reshape(B, Skv, KV, Dh)
+    v = proj(kv_src, "wv", "bv", None).reshape(B, Skv, KV, Dh)
+    return q, k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _full_cols(ctx, x, p, w, b, spec, dt, bias: bool):
+    """``x @ w (+ b)`` whole along its columns: this rank's columns, then
+    all-gathered over ``model`` when ``w`` is sharded there (decode)."""
+    sharded = ctx.model_sharded(spec[w], 1)
+    dim = 1 if sharded else None
+    out = x @ ctx.model_part(p[w], spec[w], dim).to(dt)
+    if bias:
+        out = out + ctx.model_part(p[b], spec[b], 0 if sharded else None
+                                   ).to(dt)
+    if sharded:
+        out = all_gather_dim(out.contiguous(), ctx.group("model"), -1)
+    return out
+
+
+def _mesh_decode_out(ctx, p, qg, ck, cv, allow, cfg: LMConfig, cross=False):
+    """The decode attention of the whole heads' ``qg`` (B, 1, KV, G, Dh)
+    against this rank's cache blocks when ``n_kv_heads`` does not divide
+    the model degree (the ``head`` fallback, or a cache held whole), as
+    the reference's constraints lay it out; returns this rank's partial
+    sums over ``model`` of the ``wo`` product (B, 1, d)."""
+    B = qg.shape[0]
+    H, Dh = cfg.n_heads, cfg.head_dim
+    spec = attention_spec(cfg, cross=cross)
+    dev = qg.device
+    qg = shd.constrain(qg, ("batch", None, "kv_heads", None, "head"))
+    head_split = qg.shape[-1] != Dh
+    s = torch.einsum("bqkgd,blkd->bkgql", qg.float(), ck.float())
+    if head_split:  # partial scores over head_dim blocks
+        s = psum(s, ctx.group("model"))
+    if allow is not None:
+        s = torch.where(allow, s, torch.tensor(NEG_INF, device=dev))
+    prob = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgql,blkd->bkgqd", prob, cv.float())
+    if head_split:
+        o = all_gather_dim(o.contiguous(), ctx.group("model"), -1)
+    o = o.movedim(3, 1).reshape(B, 1, H * Dh).to(cfg.dtype)
+    lo, hi = (h * Dh for h in ctx.part(H, "n_heads"))
+    wo = ctx.model_part(p["wo"], spec["wo"], 0).to(cfg.dtype)
+    return o[..., lo:hi] @ wo
 
 
 # ------------------------------------------------- chunked online softmax
@@ -139,9 +211,12 @@ def self_attention(
     window: Optional[int] = None,
     use_rope: bool = True,
 ):
-    """Full training/prefill self-attention over x (B, S, d)."""
-    B, S, _ = x.shape
+    """Full training/prefill self-attention over x (B, S, d); on a mesh
+    ``x`` and the output are the residual stream's layout."""
+    ctx = shd.context()
+    x = ctx.enter(x)
     q, k, v = qkv_proj(p, x, cfg)
+    B, S, _ = x.shape
     if use_rope:
         pos = (positions if positions is not None
                else torch.arange(S, device=x.device))
@@ -153,8 +228,9 @@ def self_attention(
         q, k, v, causal=True, window=w, chunk=cfg.attn_chunk,
         p_bf16=cfg.attn_p_bf16,
     )
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"].to(cfg.dtype)
+    out = out.reshape(B, S, -1) @ ctx.model_part(
+        p["wo"], attention_spec(cfg)["wo"], 0).to(cfg.dtype)
+    return ctx.exit(out)
 
 
 # ------------------------------------------------------------------ decode
@@ -182,7 +258,16 @@ def decode_self_attention(
     KV, Dh = cfg.n_kv_heads, cfg.head_dim
     dev = x.device
     pos = int(pos)
-    q, k, v = qkv_proj(p, x, cfg)
+    ctx = shd.context()
+    local = KV % ctx.size("model") == 0
+    if local:  # the cache holds this rank's KV heads: its heads alone
+        q, k, v = qkv_proj(p, x, cfg)
+        KV = k.shape[2]
+    else:  # whole heads; cut to the cache's block below
+        spec, dt = attention_spec(cfg), cfg.dtype
+        q, k, v = (_full_cols(ctx, x, p, w, b, spec, dt, cfg.qkv_bias)
+                   .reshape(B, 1, -1, Dh)
+                   for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
     if use_rope:
         posv = torch.tensor([pos], device=dev)
         cos, sin = rope_angles(cfg, posv)
@@ -191,11 +276,12 @@ def decode_self_attention(
     w = cfg.window if window is None else window
     rolling = 0 < w <= L
     slot = pos % L if rolling else min(max(pos, 0), L - 1)
+    if not local:
+        kv_axes = ("batch", None, "kv_heads", "head")
+        k, v = shd.constrain(k, kv_axes), shd.constrain(v, kv_axes)
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
 
-    qg = (q * (Dh ** -0.5)).reshape(B, 1, KV, -1, Dh).float()
-    s = torch.einsum("bqkgd,blkd->bkgql", qg, cache_k.float())
     idx = torch.arange(L, device=dev)
     if rolling:
         # slot i holds absolute position: largest p <= pos with p % L == i
@@ -206,11 +292,42 @@ def decode_self_attention(
     allow = (abs_pos >= 0) & (abs_pos <= pos)
     if w > 0:
         allow = allow & (abs_pos > pos - w)
+    qg = (q * (Dh ** -0.5)).reshape(B, 1, KV, -1, Dh).float()
+    if not local:
+        return ctx.exit(_mesh_decode_out(ctx, p, qg, cache_k, cache_v, allow,
+                                         cfg)), cache_k, cache_v
+    s = torch.einsum("bqkgd,blkd->bkgql", qg, cache_k.float())
     s = torch.where(allow, s, torch.tensor(NEG_INF, device=dev))
     prob = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgql,blkd->bkgqd", prob, cache_v.float())
-    out = out.movedim(3, 1).reshape(B, 1, cfg.n_heads * Dh).to(x.dtype)
-    return out @ p["wo"].to(cfg.dtype), cache_k, cache_v
+    out = out.movedim(3, 1).reshape(B, 1, -1).to(x.dtype)
+    # this rank's heads through its rows of wo
+    wo = ctx.model_part(p["wo"], attention_spec(cfg)["wo"], 0)
+    return ctx.exit(out @ wo.to(cfg.dtype)), cache_k, cache_v
+
+
+def decode_cross_attention(p, x, xk, xv, cfg: LMConfig):
+    """One token's cross-attention (B, 1, d) against the cached vision K/V
+    ``xk``/``xv`` (B, Sv, KV, Dh): non-causal, no rope, before the gate.
+    On a mesh ``xk``/``xv`` are this rank's blocks (its KV heads, or the
+    ``head`` fallback) and the output the residual stream's layout."""
+    B, dt, Dh = x.shape[0], cfg.dtype, cfg.head_dim
+    spec = attention_spec(cfg, cross=True)
+    ctx = shd.context()
+    if cfg.n_kv_heads % ctx.size("model"):
+        q = _full_cols(ctx, x, p, "wq", None, spec, dt, False)
+        qg = (q.reshape(B, 1, -1, Dh) * (Dh ** -0.5)).reshape(
+            B, 1, cfg.n_kv_heads, -1, Dh)
+        return ctx.exit(_mesh_decode_out(ctx, p, qg, xk, xv, None, cfg,
+                                         cross=True))
+    q = x @ ctx.model_part(p["wq"], spec["wq"], 1).to(dt)
+    qg = (q.reshape(B, 1, -1, Dh) * (Dh ** -0.5)).reshape(
+        B, 1, xk.shape[2], -1, Dh)
+    s = torch.einsum("bqkgd,blkd->bkgql", qg.float(), xk.float())
+    prob = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgql,blkd->bkgqd", prob, xv.float())
+    o = o.movedim(3, 1).reshape(B, 1, -1).to(dt)
+    return ctx.exit(o @ ctx.model_part(p["wo"], spec["wo"], 0).to(dt))
 
 
 # ----------------------------------------------------------- cross-attend
@@ -222,14 +339,13 @@ def cross_attention(p, x, vision_kv, cfg: LMConfig):
     the weights rounded to ``cfg.dtype`` first, as the reference's
     ``vision_kv @ wk.astype(dt)``; the output keeps ``q``'s dtype.
     """
+    ctx = shd.context()
+    x = ctx.enter(x)
     B, S, _ = x.shape
     dt = cfg.dtype
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     ct = torch.promote_types(vision_kv.dtype, dt)
-    vis = vision_kv.to(ct)
-    q = (x @ p["wq"].to(dt)).reshape(B, S, H, Dh)
-    k = (vis @ p["wk"].to(dt).to(ct)).reshape(B, -1, KV, Dh)
-    v = (vis @ p["wv"].to(dt).to(ct)).reshape(B, -1, KV, Dh)
+    q, k, v = qkv_proj(p, x, cfg, kv_x=vision_kv.to(ct), cross=True)
     out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    out = out.reshape(B, S, H * Dh) @ p["wo"].to(dt)
+    wo = ctx.model_part(p["wo"], attention_spec(cfg, cross=True)["wo"], 0)
+    out = ctx.exit(out.reshape(B, S, -1) @ wo.to(dt))
     return out * torch.tanh(p["gate"].to(dt))

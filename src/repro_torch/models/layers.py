@@ -3,6 +3,15 @@
 Port of ``repro.models.layers``.  Parameters stay float32 and each is cast
 to ``cfg.dtype`` at its matmul, as in the reference (``apply_mlp``,
 ``unembed``), so the port rounds where the reference rounds.
+
+On an LM mesh (``repro_torch.runtime.sharding.context()``) each rank holds
+its blocks of the parameters: norms run on the rank's tokens of the
+residual stream; the MLP enters with the whole sequence, runs column- then
+row-parallel over ``model`` and leaves through ``MeshContext.exit``; the
+embedding looks up every ``data`` rank's tokens in the rank's columns of
+the table and gathers the rows' columns; ``unembed`` gives this rank's
+``vocab`` part of the logits.  Off a mesh the same code runs on the
+one-device context, whose parts are whole and collectives identities.
 """
 from __future__ import annotations
 
@@ -13,6 +22,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import LMConfig
 from repro_torch.nn import ParamSpec
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.collectives import all_gather_dim, gather_dim
 
 
 # ------------------------------------------------------------------- norms
@@ -30,7 +41,9 @@ def apply_norm(p, x, cfg: LMConfig):
     else:  # rmsnorm
         ms = (xf * xf).mean(dim=-1, keepdim=True)
         y = xf * torch.rsqrt(ms + cfg.norm_eps)
-    return (y * p["scale"].float()).to(x.dtype)
+    scale = shd.context().model_part(  # gathered over data on a mesh
+        p["scale"], norm_spec(cfg, x.shape[-1])["scale"])
+    return (y * scale.float()).to(x.dtype)
 
 
 # -------------------------------------------------------------------- mlps
@@ -54,16 +67,42 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
-def apply_mlp(p, x, cfg: LMConfig):
+def mlp_partial(p, x, cfg: LMConfig, d_ff: Optional[int] = None):
+    """The MLP of the whole-sequence ``x`` without ``b_down``; on a mesh
+    this rank's partial sums over ``model`` (columns of ``w_gate``/
+    ``w_up``, rows of ``w_down``), which the caller sums (``exit``)."""
+    ctx = shd.context()
     dt = cfg.dtype
+    spec = mlp_spec(cfg, d_ff)
+
+    def w(name, dim):
+        return ctx.model_part(p[name], spec[name], dim).to(dt)
+
     if cfg.mlp in ("swiglu", "geglu"):
-        g = x @ p["w_gate"].to(dt)
-        u = x @ p["w_up"].to(dt)
+        g = x @ w("w_gate", 1)
+        u = x @ w("w_up", 1)
         act = F.silu(g) if cfg.mlp == "swiglu" else _gelu(g)
-        return (act * u) @ p["w_down"].to(dt)
-    h = x @ p["w_up"].to(dt) + p["b_up"].to(dt)
+        return (act * u) @ w("w_down", 0)
+    h = x @ w("w_up", 1) + w("b_up", 0)
     h = _gelu(h)
-    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+    return h @ w("w_down", 0)
+
+
+def mlp_bias(p, y, cfg: LMConfig, d_ff: Optional[int] = None):
+    """``y`` (summed ``mlp_partial``s) plus ``b_down`` where the MLP has
+    one."""
+    if cfg.mlp in ("swiglu", "geglu"):
+        return y
+    b = shd.context().model_part(p["b_down"], mlp_spec(cfg, d_ff)["b_down"])
+    return y + b.to(cfg.dtype)
+
+
+def apply_mlp(p, x, cfg: LMConfig, d_ff: Optional[int] = None):
+    """The MLP of ``x``; on a mesh ``x`` and the output are the residual
+    stream's layout (``d_ff``: the width, ``cfg.d_ff`` unless given)."""
+    ctx = shd.context()
+    y = ctx.exit(mlp_partial(p, ctx.enter(x), cfg, d_ff))
+    return mlp_bias(p, y, cfg, d_ff)
 
 
 # -------------------------------------------------------------- embeddings
@@ -83,14 +122,39 @@ def embed_spec(cfg: LMConfig):
 
 
 def embed_tokens(p, tokens, cfg: LMConfig):
-    return p["table"][tokens].to(cfg.dtype)
+    """The embedding rows of ``tokens``; on a mesh the rank looks up every
+    ``data`` rank's tokens in its block of the table's columns and the
+    columns are gathered over ``data`` (a few MB of activations, not the
+    whole table), then it keeps its own rows."""
+    ctx = shd.context()
+    axes = ctx.spec(embed_spec(cfg)["table"])[1]
+    if axes is None:
+        return p["table"][tokens].to(cfg.dtype)
+    group = shd.axes_group(ctx.mesh, axes)
+    rows = tokens.shape[0]
+    if ctx.batch_sharded:  # the other data ranks' tokens
+        tokens = all_gather_dim(tokens.contiguous(), group, 0)
+    x = gather_dim(p["table"][tokens], group, -1)
+    if ctx.batch_sharded:
+        i = shd.axes_index(ctx.mesh, axes)[0]
+        x = x[i * rows:(i + 1) * rows]
+    return x.to(cfg.dtype)
+
+
+def vocab_part(cfg: LMConfig) -> tuple:
+    """(lo, hi) of the vocabulary this rank's logits cover (all of it off
+    a mesh)."""
+    return shd.context().part(cfg.vocab, "vocab")
 
 
 def unembed(p, x, cfg: LMConfig):
+    """Logits of ``x``; on a mesh this rank's ``vocab_part`` of them."""
+    ctx = shd.context()
+    spec = embed_spec(cfg)
     if cfg.tie_embeddings:
-        w = p["table"].to(cfg.dtype).T
+        w = ctx.model_part(p["table"], spec["table"], 0).to(cfg.dtype).T
     else:
-        w = p["unembed"].to(cfg.dtype)
+        w = ctx.model_part(p["unembed"], spec["unembed"], 1).to(cfg.dtype)
     logits = x @ w
     if cfg.logit_softcap > 0.0:
         c = cfg.logit_softcap

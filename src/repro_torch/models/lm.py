@@ -27,6 +27,16 @@ The loss is the reference's sequence-chunked softmax cross-entropy
 (``chunked_xent``): logits are made one chunk at a time, upcast to f32,
 and recomputed in backward; moe adds ``aux_coef`` times the summed
 load-balancing loss.
+
+On an LM mesh (``repro_torch.runtime.sharding.context()``) every function
+runs on this rank's blocks: ``_seq_shard`` cuts the residual stream's
+sequence over ``model`` where it divides (sequence parallelism; decode's
+single token stays whole), each block enters and leaves through the
+mesh context, ``logits_fn`` and ``decode_step`` return this rank's
+``vocab`` part of the logits, the cross-entropy is vocab-parallel (the
+max, the sum of exponentials and the target logit reduced over
+``model``), and ``lm_loss`` is this rank's share of the mean over the
+global batch (the shares of every rank sum to the loss).
 """
 from __future__ import annotations
 
@@ -45,9 +55,11 @@ from repro_torch.models.config import (
 )
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, embed_spec, embed_tokens, mlp_spec, norm_spec,
-    unembed,
+    unembed, vocab_part,
 )
 from repro_torch.nn import ParamSpec, init_params
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.collectives import all_max, psum
 from repro_torch.tree import tree_map
 
 
@@ -201,9 +213,25 @@ def param_specs(cfg: LMConfig):
     return spec
 
 
-def init(cfg: LMConfig, gen: torch.Generator):
-    """Random parameters on ``gen``'s device (float32, as the reference)."""
-    return init_params(param_specs(cfg), gen)
+def init(cfg: LMConfig, gen: torch.Generator, mesh=None, rules=None):
+    """Random parameters on ``gen``'s device (float32, as the reference);
+    with ``mesh``, this rank's blocks, drawn leaf by leaf
+    (``nn.init_params``)."""
+    return init_params(param_specs(cfg), gen, mesh, rules)
+
+
+def _seq_shard(x):
+    """Sequence-parallel residual stream at layer boundaries: this rank's
+    block of the sequence over ``model`` (the reference's
+    ``constrain(x, ("batch", "seq", None))``); no-op without a mesh
+    context or where S does not divide (decode's S = 1)."""
+    ctx = shd.active()
+    if ctx is None:
+        return x
+    spec = shd.operand_pspec(x.shape, ("batch", "seq", None), ctx.mesh,
+                             ctx.rules)
+    ctx.seq_sharded = spec[1] is not None
+    return shd.constrain(x, ("batch", "seq", None))
 
 
 # ---------------------------------------------------------- block applies
@@ -264,8 +292,10 @@ def forward(params, tokens, cfg: LMConfig,
     """tokens (B, S) -> (final hidden states (B, S, d) [pre-unembed], aux).
 
     ``aux`` is the moe layers' summed load-balancing loss (f32; zero for
-    the other families).  vlm needs ``vision`` (B, vision_seq, d)."""
-    x = embed_tokens(params["embed"], tokens, cfg)
+    the other families; on a mesh this rank's share of it).  vlm needs
+    ``vision`` (B, vision_seq, d).  On a mesh the hidden states are the
+    residual stream's layout (``_seq_shard``)."""
+    x = _seq_shard(embed_tokens(params["embed"], tokens, cfg))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     fam = cfg.family
     if fam in (DENSE, AUDIO, SSM):
@@ -301,8 +331,10 @@ def forward(params, tokens, cfg: LMConfig,
 
 
 def logits_fn(params, tokens, cfg: LMConfig, vision=None):
+    """(B, S, V) logits; on a mesh this rank's batch rows and ``vocab``
+    part, the whole sequence."""
     x, _ = forward(params, tokens, cfg, vision)
-    return unembed(params["embed"], x, cfg)
+    return unembed(params["embed"], shd.context().enter(x), cfg)
 
 
 # ------------------------------------------------------------------ cache
@@ -401,16 +433,9 @@ def _decode_rec_block(p, x, conv, lru, at, cfg: LMConfig):
 def _decode_cross_block(p, x, xk, xv, cfg: LMConfig):
     """The cross block against the cached vision K/V (non-causal, no
     rope), then its gated MLP."""
-    B, dt = x.shape[0], cfg.dtype
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = apply_norm(p["ln1"], x, cfg) @ p["xattn"]["wq"].to(dt)
-    qg = (q.reshape(B, 1, H, Dh) * (Dh ** -0.5)).reshape(B, 1, KV, -1, Dh)
-    s = torch.einsum("bqkgd,blkd->bkgql", qg.float(), xk.float())
-    prob = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgql,blkd->bkgqd", prob, xv.float())
-    o = o.movedim(3, 1).reshape(B, 1, H * Dh)
-    o = o.to(dt) @ p["xattn"]["wo"].to(dt)
-    x = x + o * torch.tanh(p["xattn"]["gate"].to(dt))
+    o = attn.decode_cross_attention(p["xattn"], apply_norm(p["ln1"], x, cfg),
+                                    xk, xv, cfg)
+    x = x + o * torch.tanh(p["xattn"]["gate"].to(cfg.dtype))
     return _gated_mlp(p, x, cfg)
 
 
@@ -419,9 +444,11 @@ def decode_step(params, cache, tokens, pos: int, cfg: LMConfig):
 
     Returns (logits (B, 1, V), cache).  The cache is updated **in place**
     (the reference returns a new cache; its jit donates the old buffers to
-    the same effect), so the returned dict is the one passed in.
+    the same effect), so the returned dict is the one passed in.  On a
+    mesh the cache is this rank's blocks and the logits this rank's
+    ``vocab`` part.
     """
-    x = embed_tokens(params["embed"], tokens, cfg)
+    x = _seq_shard(embed_tokens(params["embed"], tokens, cfg))
     fam = cfg.family
     if fam in (DENSE, AUDIO, MOE):
         for i in range(cfg.n_layers):
@@ -479,10 +506,19 @@ def decode_step(params, cache, tokens, pos: int, cfg: LMConfig):
 def _xent_chunk(embed, xx, ll, cfg: LMConfig):
     """(sum of the chunk's token NLLs, count of its valid labels)."""
     logits = unembed(embed, xx, cfg).float()
-    lse = torch.logsumexp(logits, dim=-1)
     valid = ll >= 0
-    gold = torch.gather(logits, -1,
-                        torch.clamp(ll, min=0).long()[..., None])[..., 0]
+    # vocab-parallel on a mesh: the logits hold this rank's part, and the
+    # max, the sum of exponentials and the target logit are reduced over
+    # model (torch.logsumexp's own formula)
+    g = shd.context().group("model")
+    lo, hi = vocab_part(cfg)
+    m = all_max(logits.amax(dim=-1), g)
+    lse = torch.log(psum(torch.exp(logits - m[..., None]).sum(dim=-1), g)) + m
+    lab = ll.long() - lo
+    mine = (lab >= 0) & (lab < hi - lo)
+    own = torch.gather(logits, -1,
+                       torch.clamp(lab, 0, hi - lo - 1)[..., None])[..., 0]
+    gold = psum(torch.where(mine, own, torch.zeros((), device=own.device)), g)
     nll = torch.where(valid, lse - gold, torch.zeros((), device=lse.device))
     return torch.sum(nll), torch.sum(valid).float()
 
@@ -491,8 +527,12 @@ def chunked_xent(params, x, labels, cfg: LMConfig, chunk: int = 512):
     """Sequence-chunked softmax cross-entropy; never stores (B, S, V).
 
     ``S`` is padded to a multiple of ``chunk`` with label -1, and labels
-    -1 are masked; each chunk's logits are recomputed in backward.
+    -1 are masked; each chunk's logits are recomputed in backward.  On a
+    mesh ``x`` is the residual stream's layout and the result is this
+    rank's share of the mean over the global batch.
     """
+    ctx = shd.context()
+    x = ctx.enter(x)
     B, S, _ = x.shape
     chunk = max(1, min(chunk, S))
     pad = (-S) % chunk
@@ -510,11 +550,14 @@ def chunked_xent(params, x, labels, cfg: LMConfig, chunk: int = 512):
         else:
             s, n = _xent_chunk(*args)
         tot, cnt = tot + s, cnt + n
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot / torch.clamp(ctx.data_sum(cnt), min=1.0) / ctx.copies()
 
 
 def lm_loss(params, batch, cfg: LMConfig, aux_coef: float = 0.01):
-    """batch: {"tokens": (B, S) int, "labels": (B, S) int (-1 = pad)}."""
+    """batch: {"tokens": (B, S) int, "labels": (B, S) int (-1 = pad)}.
+
+    On a mesh: this rank's share of the loss (``chunked_xent``; the aux
+    term's share from ``moe.apply_moe``)."""
     x, aux = forward(params, batch["tokens"], cfg, batch.get("vision"))
     loss = chunked_xent(params, x, batch["labels"], cfg)
     if cfg.family == MOE:

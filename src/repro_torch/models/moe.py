@@ -7,8 +7,16 @@ tokens when the group does not divide them), each token picks its
 ``top_k`` experts by router probability, and each (token, slot) pair
 takes the next free position of its expert's ``C = expert_capacity``
 slots; pairs past ``C`` are dropped.  Dispatch and combine are one-hot
-einsums over (group, token, expert, slot).  The reference's sharding
-hints (``constrain``) have no counterpart on one card and are dropped.
+einsums over (group, token, expert, slot).
+
+On an LM mesh (``repro_torch.runtime.sharding.context()``) the block
+enters with the whole sequence and every ``model`` rank routes alike (the
+router is replicated); with ``expert`` over ``model`` each rank
+dispatches to, runs and combines only its own experts (the reference's
+``constrain(..., require="expert")``), otherwise every rank runs every
+expert on its ``mlp`` columns; the partial outputs leave through
+``MeshContext.exit``.  The capacity groups are the unsharded run's: a
+group that would straddle two ``data`` ranks is refused.
 
 Returns a Switch-style load-balancing auxiliary loss beside the outputs.
 """
@@ -20,8 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import LMConfig
-from repro_torch.models.layers import apply_mlp, mlp_spec
+from repro_torch.models.layers import mlp_bias, mlp_partial, mlp_spec
 from repro_torch.nn import ParamSpec
+from repro_torch.runtime import sharding as shd
 
 
 def moe_spec(cfg: LMConfig):
@@ -54,7 +63,9 @@ def route(p, xg, cfg: LMConfig):
     """Router probabilities (G, g, E) and the top-k (weights, experts) of
     each token, ``jax.lax.top_k``'s order: descending, the lower expert
     first on a tie; the weights renormalised to sum to one."""
-    logits = xg.float() @ p["router"].float()
+    # replicated on model, gathered over data on a mesh
+    router = shd.context().model_part(p["router"], moe_spec(cfg)["router"])
+    logits = xg.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, idx = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
@@ -63,15 +74,48 @@ def route(p, xg, cfg: LMConfig):
     return probs, weights, idx
 
 
+def _group_size(ctx, B: int, S: int, g: int) -> int:
+    """The unsharded run's group size for this rank's ``B`` rows (all the
+    tokens when ``g`` does not divide them: the smoke shapes' fallback), or
+    a refusal when one of its groups would straddle two ``data`` ranks."""
+    shards = ctx.size("data") if ctx.batch_sharded else 1
+    T_all, T = B * shards * S, B * S
+    if T_all % g:
+        g = T_all  # the unsharded run's degenerate fallback
+    if T % g:
+        raise ValueError(
+            f"moe capacity group of {g} tokens straddles the {shards} data "
+            f"ranks' blocks of {T} tokens; the groups must be the unsharded "
+            "run's (pick a batch whose rows a data rank holds whole groups "
+            "of)")
+    return g
+
+
+def _expert_weights(ctx, p, cfg: LMConfig):
+    """(w_gate, w_up, w_down) of this rank, in f32: its experts when
+    ``expert`` maps to ``model``, else every expert's ``mlp`` columns.
+    The caller casts each at its einsum, so one cast copy lives at a time
+    (arctic's are 8.9 GB each in bf16)."""
+    spec = moe_spec(cfg)
+    ep = ctx.model_sharded(spec["w_gate"], 0)
+    dims = {"w_gate": 0 if ep else 2, "w_up": 0 if ep else 2,
+            "w_down": 0 if ep else 1}
+    return tuple(ctx.model_part(p[n], spec[n], dims[n])
+                 for n in ("w_gate", "w_up", "w_down"))
+
+
 def apply_moe(p, x, cfg: LMConfig, group_size: int = 0):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar)."""
+    """x: (B, S, d) -> (out (B, S, d), aux_loss scalar).
+
+    On a mesh ``x`` and ``out`` are the residual stream's layout and the
+    aux loss is this rank's share."""
+    ctx = shd.context()
+    x = ctx.enter(x)
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     dt = cfg.dtype
-    g = group_size or cfg.moe_group or min(S, 4096)
+    g = _group_size(ctx, B, S, group_size or cfg.moe_group or min(S, 4096))
     T = B * S
-    if T % g:
-        g = T  # degenerate fallback (smoke shapes)
     xg = x.reshape(T // g, g, d)  # (G, g, d)
     probs, weights, idx = route(p, xg, cfg)
 
@@ -89,17 +133,29 @@ def apply_moe(p, x, cfg: LMConfig, group_size: int = 0):
                            eh * (weights * keep)[..., None], poh).to(dt)
     dispatch = (combine > 0).to(dt)
 
+    # this rank's experts (or every expert's mlp columns)
+    ax = (None, None, "expert", None)
+    dispatch = shd.constrain(dispatch, ax, require="expert")
+    combine = shd.constrain(combine, ax, require="expert")
+    wg, wu, wd = _expert_weights(ctx, p, cfg)
     xd = torch.einsum("gtec,gtd->gecd", dispatch, xg.to(dt))
-    h = torch.einsum("gecd,edf->gecf", xd, p["w_gate"].to(dt))
-    u = torch.einsum("gecd,edf->gecf", xd, p["w_up"].to(dt))
-    eo = torch.einsum("gecf,efd->gecd", F.silu(h) * u, p["w_down"].to(dt))
+    h = torch.einsum("gecd,edf->gecf", xd, wg.to(dt))
+    u = torch.einsum("gecd,edf->gecf", xd, wu.to(dt))
+    eo = torch.einsum("gecf,efd->gecd", F.silu(h) * u, wd.to(dt))
     out = torch.einsum("gtec,gecd->gtd", combine, eo).reshape(B, S, d)
+    if cfg.dense_residual_ff:
+        ff = cfg.dense_residual_ff
+        out = out + mlp_partial(p["dense"], x, cfg, ff)
+        out = mlp_bias(p["dense"], ctx.exit(out), cfg, ff)
+    else:
+        out = ctx.exit(out)
 
-    # Switch-style load-balancing auxiliary loss
+    # Switch-style load-balancing auxiliary loss; on a mesh this rank's
+    # share: its groups of the global batch, over every rank that routes
+    # them alike
     me = torch.mean(probs, dim=1)  # (G, E) mean router prob
     ce = torch.mean(eh[:, :, 0, :], dim=1)  # (G, E) top-1 assignment share
-    aux = E * torch.mean(torch.sum(me * ce, dim=-1))
-
-    if cfg.dense_residual_ff:
-        out = out + apply_mlp(p["dense"], x, cfg)
+    shards = ctx.size("data") if ctx.batch_sharded else 1
+    share = 1.0 / (shards * ctx.copies())
+    aux = E * torch.mean(torch.sum(me * ce, dim=-1)) * share
     return out, aux

@@ -14,6 +14,12 @@ The scan runs the reference's chunks step by step in torch ops (padded
 with a = 1, which keeps h); under autograd each chunk is recomputed in
 backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``
 of its chunk body), as ``ssm._selective_scan`` does.
+
+On an LM mesh (``repro_torch.runtime.sharding.context()``) the ``lru``
+channels (``mlp``) and the gate heads (``heads``) are split over
+``model``, a rank's heads being exactly its channels' blocks; the block
+enters with the whole sequence and leaves through the row-parallel
+``w_out``.  A mesh that would split one and not the other is refused.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from repro_torch.models.config import LMConfig
 from repro_torch.models.layers import _gelu
 from repro_torch.models.ssm import _causal_conv
 from repro_torch.nn import ParamSpec
+from repro_torch.runtime import sharding as shd
 
 RG_C = 8.0
 
@@ -102,24 +109,40 @@ def apply_rglru_block(
 ):
     """Full Griffin recurrent block. x: (B, S, d).
 
-    Returns (out, (new_conv_state, new_lru_state)).
+    Returns (out, (new_conv_state, new_lru_state)).  On a mesh ``x`` and
+    ``out`` are the residual stream's layout and the states this rank's
+    channels.
     """
+    ctx = shd.context()
+    m = ctx.size("model")
+    if cfg.lru_width % m == 0 and cfg.n_heads % m:
+        raise ValueError(
+            f"{cfg.name}: lru_width {cfg.lru_width} splits over the {m} "
+            f"'model' ranks but n_heads {cfg.n_heads} does not: the gates' "
+            "head blocks would not be the rank's channels")
+    h_lo, h_hi = ctx.part(cfg.n_heads, "n_heads")
+    spec = rglru_spec(cfg)
+
+    def w(name, dim):
+        return ctx.model_part(p[name], spec[name], dim)
+
+    x = ctx.enter(x)
     B = x.shape[0]
     dt = cfg.dtype
-    x1 = x @ p["w_in"].to(dt)
-    x2 = _gelu(x @ p["w_gate_branch"].to(dt))
-    x1, new_conv = _causal_conv(x1, p["conv_w"], p["conv_b"],
+    x1 = x @ w("w_in", 1).to(dt)
+    x2 = _gelu(x @ w("w_gate_branch", 1).to(dt))
+    x1, new_conv = _causal_conv(x1, w("conv_w", 1), w("conv_b", 0),
                                 state=conv_state)
     # --- RG-LRU ---
     xf = x1.float()
-    r = torch.sigmoid(_blockdiag(xf, p["w_a"], p["b_a"], cfg.n_heads))
-    i = torch.sigmoid(_blockdiag(xf, p["w_x"], p["b_x"], cfg.n_heads))
-    log_a = -RG_C * r * F.softplus(-p["lam"])  # (B, S, lru)
+    r = torch.sigmoid(_blockdiag(xf, w("w_a", 0), w("b_a", 0), h_hi - h_lo))
+    i = torch.sigmoid(_blockdiag(xf, w("w_x", 0), w("b_x", 0), h_hi - h_lo))
+    log_a = -RG_C * r * F.softplus(-w("lam", 0))  # (B, S, lru)
     a_t = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a_t * a_t, min=1e-12)) * (i * xf)
     h0 = (lru_state if lru_state is not None
-          else torch.zeros((B, cfg.lru_width), dtype=torch.float32,
+          else torch.zeros((B, xf.shape[-1]), dtype=torch.float32,
                            device=x.device))
     y, h = _lru_scan(a_t, gated, h0, cfg.scan_chunk)
-    out = (y.to(dt) * x2) @ p["w_out"].to(dt)
-    return out, (new_conv, h)
+    out = (y.to(dt) * x2) @ w("w_out", 0).to(dt)
+    return ctx.exit(out), (new_conv, h)

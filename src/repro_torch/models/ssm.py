@@ -9,6 +9,15 @@ under autograd each chunk is recomputed in backward (the reference's
 (conv_state, ssm_state) and advances one step.  As in the reference, the
 served block runs this plain scan; the hand-written K7 kernel
 (``kernels.ops.selective_scan``) is held against it.
+
+On an LM mesh (``repro_torch.runtime.sharding.context()``) ``d_inner``
+(``mlp``) is split over ``model``: the block enters with the whole
+sequence, gathers its block of ``in_proj``'s outputs over ``model`` and
+takes its channels of both halves, runs the conv, the scan and ``D`` on
+them, sums ``x_proj``'s partial products over ``model`` before ``dt``,
+``B`` and ``C``, and leaves through the row-parallel ``out_proj``.
+Decode states are the rank's channels.  Off a mesh the same code runs on
+the one-device context, whose parts are whole and collectives identities.
 """
 from __future__ import annotations
 
@@ -20,6 +29,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import LMConfig
 from repro_torch.nn import ParamSpec
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.collectives import gather_dim
 
 
 def mamba_spec(cfg: LMConfig):
@@ -109,21 +120,31 @@ def mamba_scan_inputs(p, x, cfg: LMConfig,
     """The block up to its scan: (xc, dt, B, C, A, z, new_conv_state).
 
     xc, dt (B, S, di) and B, C (B, S, st) are float32, A = -exp(A_log)
-    (di, st); z is the gate half of the input projection.
+    (di, st); z is the gate half of the input projection.  On a mesh ``x``
+    is the whole sequence and every ``di`` this rank's channels: its block
+    of ``in_proj``'s columns is gathered over ``model`` as activations, not
+    weights, and ``x_proj``'s partial products are summed over ``model``.
     """
     di, st, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
     dt_ = cfg.dtype
-    xz = x @ p["in_proj"].to(dt_)
-    x_in, z = xz[..., :di], xz[..., di:]
-    y_conv, new_conv = _causal_conv(x_in, p["conv_w"], p["conv_b"],
+    ctx = shd.context()
+    spec = mamba_spec(cfg)
+
+    def w(name, dim=None):
+        return ctx.model_part(p[name], spec[name], dim)
+
+    lo, hi = ctx.part(di, "d_inner")
+    xz = gather_dim(x @ w("in_proj", 1).to(dt_), ctx.group("model"), -1)
+    x_in, z = xz[..., lo:hi], xz[..., di + lo:di + hi]
+    y_conv, new_conv = _causal_conv(x_in, w("conv_w", 1), w("conv_b", 0),
                                     state=conv_state)
     xc = F.silu(y_conv).float()
-    proj = xc.to(dt_) @ p["x_proj"].to(dt_)
+    proj = ctx.psum_model(xc.to(dt_) @ w("x_proj", 0).to(dt_))
     dt_low = proj[..., :dr].float()
     B_ssm = proj[..., dr:dr + st].float()
     C_ssm = proj[..., dr + st:].float()
-    dt = F.softplus(dt_low @ p["dt_w"].float() + p["dt_b"])
-    A = -torch.exp(p["A_log"])  # (di, st)
+    dt = F.softplus(dt_low @ w("dt_w", 1).float() + w("dt_b", 0))
+    A = -torch.exp(w("A_log", 0))  # (di, st)
     return xc, dt, B_ssm, C_ssm, A, z, new_conv
 
 
@@ -137,16 +158,20 @@ def apply_mamba(
     """x: (B, S, d).  Returns (out, (new_conv_state, new_ssm_state)).
 
     Pass states for incremental decode (S may be 1); states are None for
-    prefill (zero-initialized here).
+    prefill (zero-initialized here).  On a mesh ``x`` and ``out`` are the
+    residual stream's layout and the states this rank's channels.
     """
+    ctx = shd.context()
+    spec = mamba_spec(cfg)
+    x = ctx.enter(x)
     B = x.shape[0]
     xc, dt, B_ssm, C_ssm, A, z, new_conv = mamba_scan_inputs(
         p, x, cfg, conv_state)
     h0 = (ssm_state if ssm_state is not None
-          else torch.zeros((B, cfg.d_inner, cfg.ssm_state),
+          else torch.zeros((B, xc.shape[-1], cfg.ssm_state),
                            dtype=torch.float32, device=x.device))
     y, h = _selective_scan(dt, B_ssm, C_ssm, xc, A, h0, cfg.scan_chunk)
-    y = y + p["D"] * xc
+    y = y + ctx.model_part(p["D"], spec["D"], 0) * xc
     y = y.to(cfg.dtype) * F.silu(z)
-    out = y @ p["out_proj"].to(cfg.dtype)
-    return out, (new_conv, h)
+    out = y @ ctx.model_part(p["out_proj"], spec["out_proj"], 0).to(cfg.dtype)
+    return ctx.exit(out), (new_conv, h)

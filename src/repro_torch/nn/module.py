@@ -9,13 +9,16 @@ gives other numbers than the reference's threefry keys, so parity tests
 carry JAX parameters over with ``repro_torch.convert.lm_params_from_jax``.
 
 The logical axes map onto the ``(data, model)`` mesh through the rules
-of ``repro_torch.runtime.sharding``.
+of ``repro_torch.runtime.sharding``; ``logical_to_pspec`` and the spec
+maps below are the reference's plain rules lookup (no divisibility
+fallback), and ``init_params(..., mesh=)`` keeps each rank's block of
+every leaf as it is drawn.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Mapping, Optional, Sequence
 
 import torch
 
@@ -77,10 +80,66 @@ def is_spec(x) -> bool:
     return isinstance(x, ParamSpec)
 
 
-def init_params(specs, gen: torch.Generator):
-    """Materialize a ParamSpec tree into tensors on ``gen``'s device."""
-    return tree_unflatten(specs, [_initialize(s, gen)
-                                  for s in tree_leaves(specs)])
+def init_params(specs, gen: torch.Generator, mesh=None, rules=None):
+    """Materialize a ParamSpec tree into tensors on ``gen``'s device.
+
+    With ``mesh``, each leaf is drawn whole in the same order and only this
+    rank's block (``runtime.sharding.local_block`` under the leaf's
+    resolved spec) is kept before the next is drawn: bit for bit the
+    blocks of the whole tree, with one whole leaf alive at a time."""
+    if mesh is None:
+        return tree_unflatten(specs, [_initialize(s, gen)
+                                      for s in tree_leaves(specs)])
+    from repro_torch.runtime.sharding import local_block, spec_sharding
+
+    out = []
+    for s in tree_leaves(specs):
+        whole = _initialize(s, gen)
+        out.append(local_block(whole, spec_sharding(s, mesh, rules), mesh)
+                   .clone(memory_format=torch.contiguous_format))
+        del whole
+    return tree_unflatten(specs, out)
+
+
+def abstract_params(specs):
+    """Meta tensors of a spec tree's shapes and dtypes (no memory)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs)
+
+
+def logical_to_pspec(logical_axes: Sequence[Optional[str]],
+                     rules: Mapping[str, Any]) -> tuple:
+    """Logical axis names -> mesh axes through ``rules`` (None replicates
+    a dim), trailing Nones trimmed: the reference's ``PartitionSpec`` as a
+    tuple."""
+    out = [None if name is None else rules.get(name)
+           for name in logical_axes]
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def _axes(s: ParamSpec) -> tuple:
+    return s.logical_axes or (None,) * len(s.shape)
+
+
+def specs_to_pspecs(specs, rules: Mapping[str, Any]):
+    return tree_map(lambda s: logical_to_pspec(_axes(s), rules), specs)
+
+
+def specs_to_shardings(specs, rules: Mapping[str, Any], mesh):
+    """The placements of a spec tree on ``mesh``, each a spec tuple as
+    ``runtime.sharding.tree_shardings`` gives them (the reference's
+    ``NamedSharding(mesh, logical_to_pspec(...))``; ``mesh`` names where
+    they apply and is not read)."""
+    return specs_to_pspecs(specs, rules)
+
+
+def param_bytes(tree) -> int:
+    """Bytes of a tree of ParamSpecs or tensors."""
+    return sum(math.prod(x.shape) * torch.empty((), dtype=x.dtype)
+               .element_size() if is_spec(x) else x.numel() * x.element_size()
+               for x in tree_leaves(tree))
 
 
 def param_count(tree) -> int:

@@ -15,15 +15,20 @@ and divides ``sqrt(v)`` by ``sqrt(c2)``, which rounds differently.
 its counter on the card).  ``state_dtype`` (bf16 moments) and the blocked
 update of leaves above ``scan_threshold`` are the reference's; the LM
 train step (``repro_torch.runtime.steps``) updates with ``donate=True``,
-in place, as the reference's jit donates the train state.
+in place, as the reference's jit donates the train state.  On an LM mesh
+``update`` runs unchanged on each rank's blocks; only the global norm
+of gradient clipping needs the leaves' placements (``pspecs``, ``mesh``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.runtime import sharding as shd
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -69,16 +74,18 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads, state: AdamWState, params, step, *,
-               donate: bool = False):
+               donate: bool = False, pspecs=None, mesh=None):
         """``(new_params, new_state)``.  With ``donate`` the params, the
         moments and the grads are the caller's to give up: clipping scales
         the grads in place and the new values are written into the params'
         and moments' own tensors (the reference's donated buffers), so the
         update allocates nothing of a leaf's size.  Without it the
-        arguments are left untouched."""
+        arguments are left untouched.  On a mesh the trees are this rank's
+        blocks and ``pspecs``/``mesh`` their placements (for the norm)."""
         if self.grad_clip_norm is not None:
             grads = clip_by_global_norm(grads, self.grad_clip_norm,
-                                        inplace=donate)
+                                        inplace=donate, pspecs=pspecs,
+                                        mesh=mesh)
         b1, b2 = self.b1, self.b2
         sd = self.state_dtype
         flat_p = tree_leaves(params)
@@ -155,15 +162,34 @@ class SGD:
         return new_p, new_s
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, pspecs=None, mesh=None) -> torch.Tensor:
+    """The global norm of a tree; with ``pspecs``/``mesh`` (a tree of this
+    rank's blocks and their spec tuples) of the global leaves: each block's
+    sum of squares is summed over the ranks that hold different blocks and
+    counted once over those that hold the same one (a leaf replicated on
+    ``model``, such as a norm scale, is not counted twice)."""
+    if mesh is None or pspecs is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                              for x in tree_leaves(tree)))
+    sizes = shd.mesh_shape(mesh)
+
+    def share(x, spec):
+        copies = math.prod(sizes[a] for a in shd.replicated_axes(spec, mesh))
+        return torch.sum(torch.square(x.to(torch.float32))) / copies
+
+    tot = sum(tree_leaves(tree_map(share, tree, pspecs)))
+    if math.prod(sizes.values()) > 1:
+        tot = tot.clone()
+        dist.all_reduce(tot)
+    return torch.sqrt(tot)
 
 
-def clip_by_global_norm(grads, max_norm: float, inplace: bool = False):
+def clip_by_global_norm(grads, max_norm: float, inplace: bool = False,
+                        pspecs=None, mesh=None):
     """Grads scaled to a global norm of at most ``max_norm``; ``inplace``
-    scales the caller's tensors (the same products, written back)."""
-    norm = global_norm(grads)
+    scales the caller's tensors (the same products, written back).  On a
+    mesh ``pspecs``/``mesh`` place the blocks (``global_norm``)."""
+    norm = global_norm(grads, pspecs, mesh)
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
     if inplace:
         for g in tree_leaves(grads):

@@ -1,6 +1,6 @@
-"""Collectives of the DONN mesh and the ranks that run them.
+"""Collectives of the DONN and LM meshes and the ranks that run them.
 
-The sharded DONN paths are SPMD programs: every rank of a
+The sharded paths are SPMD programs: every rank of a
 ``torch.distributed`` group runs the same code on its block.  The
 collectives they need, each on a group of the mesh:
 
@@ -20,6 +20,25 @@ collectives they need, each on a group of the mesh:
   resampling stitch of a heterogeneous stack).
 - ``all_to_all``: the pencil FFT's exchange (``pencil_fft``); a
   permutation, so its backward is the same exchange.
+
+The LM mesh (``repro_torch.models``, ``runtime.steps``) differentiates
+each rank's share of the loss, the shares summing to the global loss, so
+each collective's backward is its transpose:
+
+- ``gather_dim``: all-gather along a dim, backward reduce-scatter (an
+  FSDP weight gathered over ``data``; the residual stream entering a
+  sequence-parallel block over ``model``);
+- ``scatter_dim``: reduce-scatter along a dim, backward all-gather (the
+  partial sums of a row-parallel projection leaving a sequence-parallel
+  block);
+- ``psum``: all-reduce sum whose backward is the same all-reduce (partial
+  sums that every rank of the group goes on with: mamba's ``x_proj``,
+  the vocab-parallel cross-entropy's sums);
+- ``all_max``: an all-reduce max outside autograd.
+
+A reduce-scatter runs as NCCL's own on a NCCL group and as an all-reduce
+and a cut on gloo (whose reduce-scatter of CUDA tensors the port does not
+rely on).
 
 Complex tensors travel as ``view_as_real`` float pairs (gloo does not take
 complex ones everywhere).  Gloo also takes CUDA tensors, staged through the
@@ -67,6 +86,25 @@ def all_gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)
     return torch.cat([_like(p, t) for p in parts], dim=dim)
+
+
+def reduce_scatter_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of ``t`` over ``group``, cut along ``dim`` into one block a
+    rank; this rank's block (None: ``t`` alone)."""
+    if group is None:
+        return t
+    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    if t.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not divide "
+                         f"over {n} ranks")
+    size = t.shape[dim] // n
+    if dist.get_backend(group) == "nccl" and not t.is_complex():
+        parts = t.movedim(dim, 0).contiguous()
+        out = torch.empty((size,) + parts.shape[1:], dtype=t.dtype,
+                          device=t.device)
+        dist.reduce_scatter_tensor(out, parts, group=group)
+        return out.movedim(0, dim)
+    return all_reduce_sum(t, group).narrow(dim, idx * size, size).contiguous()
 
 
 def exchange(t: torch.Tensor, group) -> torch.Tensor:
@@ -123,6 +161,65 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return exchange(g, ctx.group), None
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_dim(t.contiguous(), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g.contiguous(), ctx.group, ctx.dim), None, \
+            None
+
+
+class _ScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter_dim(t.contiguous(), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g.contiguous(), ctx.group, ctx.dim), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce_sum(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+def gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """All-gather along ``dim``, reduce-scatter backward (None: ``t``)."""
+    return t if group is None else _GatherDim.apply(t, group, dim)
+
+
+def scatter_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Reduce-scatter along ``dim``, all-gather backward (None: ``t``)."""
+    return t if group is None else _ScatterDim.apply(t, group, dim)
+
+
+def psum(t: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce sum, all-reduce backward (None: ``t``)."""
+    return t if group is None else _Psum.apply(t, group)
+
+
+def all_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``t`` over ``group``, outside autograd."""
+    t = t.detach()
+    if group is None:
+        return t
+    buf = t.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    return buf
 
 
 def sum_over(t: torch.Tensor, group) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""Logical-axis sharding rules for the DONN mesh (``repro.runtime.sharding``).
+"""Logical-axis sharding rules for the DONN and LM meshes
+(``repro.runtime.sharding``).
 
 Parameters and activations carry *logical* axis names
 (``repro_torch.nn.ParamSpec``); a rules table maps them to the axes of the
@@ -14,7 +15,17 @@ where no rank runs; a ``torch.distributed`` ``DeviceMesh`` (tuple shape
 plus ``mesh_dim_names``) is read the same way.
 
 ``local_block`` cuts this rank's block of a global tensor by its spec: the
-counterpart of placing an array with a ``NamedSharding``.
+counterpart of placing an array with a ``NamedSharding``; ``local_tree``
+and ``gather_tree`` do so for a tree and back.
+
+The LM helpers keep the reference's names: ``spec_sharding``,
+``tree_shardings``, ``batch_sharding`` and ``scalar_sharding`` return
+spec tuples (the port's placement), ``abstract_like`` meta tensors and
+``sharded_zeros`` this rank's zero blocks.  ``activation_sharding(mesh)``
+puts a ``MeshContext`` in force for the LM models (its mesh, groups and
+this rank's coordinates; ``active()`` reads it) and ``constrain`` cuts a
+whole tensor to this rank's block of its logical axes, a no-op without
+it, as in the reference.
 """
 from __future__ import annotations
 
@@ -358,3 +369,279 @@ def group_count(mesh, axes) -> int:
     """Ranks along ``axes`` (1 when none of them is in the mesh)."""
     sizes = mesh_shape(mesh)
     return math.prod(sizes.get(a, 1) for a in _flat_axes(axes))
+
+
+# --------------------------------------------------------------------------
+# The LM helpers (``repro.runtime.sharding``'s spec_sharding ... sharded_zeros)
+# --------------------------------------------------------------------------
+def spec_sharding(spec, mesh, rules=None) -> tuple:
+    """A ``ParamSpec``'s placement on ``mesh``: its resolved spec tuple
+    (the reference's ``NamedSharding``)."""
+    axes = spec.logical_axes or (None,) * len(spec.shape)
+    return resolve_pspec(spec.shape, axes, mesh, rules)
+
+
+def tree_shardings(specs, mesh, rules=None):
+    """A ``ParamSpec`` tree -> the tree of its placements (spec tuples)."""
+    return tree_map(lambda s: spec_sharding(s, mesh, rules), specs)
+
+
+def batch_sharding(mesh, ndim: int, rules=None,
+                   batch_size: Optional[int] = None) -> tuple:
+    """The reference's ``batch_sharding``: :func:`batch_pspec`."""
+    return batch_pspec(mesh, ndim, rules, batch_size)
+
+
+def scalar_sharding(mesh) -> tuple:
+    """A scalar's placement: replicated on every rank."""
+    return ()
+
+
+def abstract_like(specs):
+    """ParamSpec tree -> tree of meta tensors of the specs' shapes and
+    dtypes (stand-ins that hold no memory)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), specs)
+
+
+def _block_shape(shape, spec, mesh) -> tuple:
+    out = list(shape)
+    for dim, axes in enumerate(spec):
+        if axes is not None:
+            out[dim] //= group_count(mesh, axes)
+    return tuple(out)
+
+
+def sharded_zeros(specs, mesh, rules=None, device=None):
+    """This rank's zero blocks of a ``ParamSpec`` tree on ``mesh``."""
+    dev = resolve_device(device)
+    return tree_map(lambda s: torch.zeros(
+        _block_shape(s.shape, spec_sharding(s, mesh, rules), mesh),
+        dtype=s.dtype, device=dev), specs)
+
+
+def local_tree(tree, pspecs, mesh, device=None):
+    """This rank's block of every leaf of a global tree under the spec
+    tree ``pspecs``, as contiguous copies (on ``device`` if given)."""
+    def cut(t, spec):
+        b = local_block(t, spec, mesh)
+        b = b.to(device) if device is not None else b
+        return b.clone(memory_format=torch.contiguous_format)
+    return tree_map(cut, tree, pspecs)
+
+
+def gather_leaf(t, spec, mesh) -> torch.Tensor:
+    """The global tensor of this rank's block ``t`` of a leaf: each sharded
+    dim all-gathered over its axes (a collective: every rank calls it)."""
+    from repro_torch.runtime.collectives import all_gather_dim
+
+    for dim, axes in enumerate(spec):
+        if axes is not None:
+            t = all_gather_dim(t.contiguous(), axes_group(mesh, axes), dim)
+    return t
+
+
+def gather_tree(tree, pspecs, mesh):
+    """The global leaves of a sharded tree, on every rank, leaf by leaf in
+    tree order."""
+    return tree_map(lambda t, s: gather_leaf(t, s, mesh), tree, pspecs)
+
+
+def replicated_axes(spec, mesh) -> tuple:
+    """The mesh axes (of size > 1) a leaf of ``spec`` is replicated over,
+    in the mesh's order."""
+    used = {a for axes in spec for a in _flat_axes(axes)}
+    return tuple(a for a, n in mesh_shape(mesh).items()
+                 if n > 1 and a not in used)
+
+
+# --------------------------------------------------------------------------
+# The mesh of an LM step.  Model code reads it through ``context()``: off
+# a mesh that is the one-device context, so the models keep one code path.
+# --------------------------------------------------------------------------
+class MeshContext:
+    """An LM step's mesh, its groups, this rank's coordinates, and the
+    placement of the step's activations: ``batch_sharded`` (the batch dim
+    of every input is this rank's block over ``data``; else each ``data``
+    rank holds the whole batch) and ``seq_sharded`` (the residual stream
+    between layers is this rank's block of the sequence over ``model``,
+    set by ``lm.forward`` through ``_seq_shard``).
+
+    The step differentiates each rank's share of the loss: a value that
+    ``k`` ranks hold alike enters the loss divided by ``k``
+    (``loss_share``), every collective's backward is its transpose
+    (``repro_torch.runtime.collectives``), and a parameter held whole by
+    several ranks gets the sum of their gradients (``steps``).
+
+    ``mesh=None`` is one device (``context()`` off a mesh): every group is
+    None, every part whole, ``enter``/``exit`` the identity."""
+
+    def __init__(self, mesh=None, rules=None, batch_sharded: bool = True):
+        self.mesh = mesh
+        self.rules = rules or DEFAULT_RULES
+        self.sizes = {} if mesh is None else mesh_shape(mesh)
+        self.coord = ({} if mesh is None else
+                      dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())))
+        self.batch_sharded = batch_sharded
+        self.seq_sharded = False
+        self._groups = {a: axes_group(mesh, a) if n > 1 else None
+                        for a, n in self.sizes.items()}
+
+    def size(self, axis: str) -> int:
+        return self.sizes.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return self.coord.get(axis, 0)
+
+    def group(self, axis: str):
+        """The axis's process group (None when it holds one rank)."""
+        return self._groups.get(axis)
+
+    def spec(self, pspec) -> tuple:
+        """A ``ParamSpec``'s placement, one entry a dim (full rank)."""
+        axes = pspec.logical_axes or (None,) * len(pspec.shape)
+        if self.mesh is None:
+            return (None,) * len(axes)
+        return operand_pspec(pspec.shape, axes, self.mesh, self.rules)
+
+    def part(self, n: int, what: str = "a dim") -> tuple:
+        """(lo, hi): this rank's contiguous part of ``n`` over ``model``;
+        raises when ``n`` does not divide."""
+        m = self.size("model")
+        if n % m:
+            raise ValueError(f"{what} of {n} does not divide over the "
+                             f"{m} ranks of the mesh's 'model' axis")
+        size = n // m
+        lo = self.index("model") * size
+        return lo, lo + size
+
+    def model_part(self, t, pspec, dim: Optional[int] = None):
+        """The compute view of a parameter block ``t`` (its spec from
+        ``pspec``): whole along every dim but ``dim``, which is this rank's
+        part over ``model``.  A dim sharded over ``data`` is gathered over
+        it (FSDP), one sharded over ``model`` is gathered unless it is
+        ``dim``; ``dim`` held whole is cut to this rank's part."""
+        from repro_torch.runtime.collectives import gather_dim
+
+        spec = self.spec(pspec)
+        for d, axes in enumerate(spec):
+            if axes is None or (d == dim and axes == "model"):
+                continue
+            t = gather_dim(t, axes_group(self.mesh, axes), d)
+        if dim is not None and spec[dim] != "model":
+            lo, hi = self.part(t.shape[dim], f"dim {dim} of {pspec.shape}")
+            if hi - lo < t.shape[dim]:
+                t = t.narrow(dim, lo, hi - lo)
+        return t
+
+    def model_sharded(self, pspec, dim: int) -> bool:
+        return self.spec(pspec)[dim] == "model"
+
+    def enter(self, x):
+        """The residual stream -> the whole sequence, to enter a block."""
+        from repro_torch.runtime.collectives import gather_dim
+
+        return gather_dim(x, self.group("model"), 1) if self.seq_sharded \
+            else x
+
+    def exit(self, y):
+        """A block's partial sums over ``model`` (whole sequence) -> the
+        residual stream: reduce-scattered over the sequence, or summed."""
+        from repro_torch.runtime.collectives import psum, scatter_dim
+
+        g = self.group("model")
+        if g is None:
+            return y
+        dt = y.dtype
+        y = y.float()  # partial sums add in f32
+        y = scatter_dim(y, g, 1) if self.seq_sharded else psum(y, g)
+        return y.to(dt)
+
+    def psum_model(self, t):
+        """Partial products summed over ``model`` (in f32)."""
+        from repro_torch.runtime.collectives import psum
+
+        g = self.group("model")
+        if g is None:
+            return t
+        return psum(t.float(), g).to(t.dtype)
+
+    def copies(self) -> int:
+        """Ranks that hold one data shard's loss alike: the ``model`` ranks,
+        times the ``data`` ranks when the batch is not split."""
+        return self.size("model") * (1 if self.batch_sharded
+                                     else self.size("data"))
+
+    def data_sum(self, t):
+        """A batch statistic summed over the data shards (no gradient)."""
+        from repro_torch.runtime.collectives import all_reduce_sum
+
+        g = self.group("data") if self.batch_sharded else None
+        return all_reduce_sum(t.detach(), g) if g is not None else t.detach()
+
+
+_ACTIVE: Optional[MeshContext] = None
+_ONE_DEVICE = MeshContext()
+
+
+def active() -> Optional[MeshContext]:
+    """The LM mesh context in force (None: one device)."""
+    return _ACTIVE
+
+
+def context() -> MeshContext:
+    """The LM mesh context in force, else the one-device context: the
+    models run one code path for both."""
+    return _ONE_DEVICE if _ACTIVE is None else _ACTIVE
+
+
+class activation_sharding:
+    """``with activation_sharding(mesh, rules):`` runs the models on this
+    rank's blocks of ``mesh`` (``MeshContext``).  A process-wide setting,
+    not a context variable: autograd recomputes checkpointed blocks on its
+    own threads.  A mesh of one rank (or None) sets nothing."""
+
+    def __init__(self, mesh, rules=None, *, batch_sharded: bool = True):
+        self.ctx = None
+        if mesh is not None and math.prod(mesh_shape(mesh).values()) > 1:
+            self.ctx = MeshContext(mesh, rules, batch_sharded)
+
+    def __enter__(self):
+        global _ACTIVE
+        self._prev = _ACTIVE
+        if self.ctx is not None:
+            _ACTIVE = self.ctx
+        return self.ctx
+
+    def __exit__(self, *exc):
+        global _ACTIVE
+        _ACTIVE = self._prev
+        return False
+
+
+def constrain(x, logical_axes: Sequence[Optional[str]],
+              require: Optional[str] = None):
+    """This rank's block of ``x`` under the logical axes, the reference's
+    sharding constraint: ``x`` is whole along every dim but ``batch``
+    (which the step placed), and each dim whose axes map is cut to this
+    rank's block (a differentiable view).
+
+    - no mesh context: ``x`` unchanged;
+    - nothing maps: ``x`` unchanged;
+    - ``require=<name>``: only if that logical axis maps (the moe's
+      expert-resident layout when ``n_experts`` is below the model degree).
+    """
+    ctx = active()
+    if ctx is None:
+        return x
+    spec = operand_pspec(x.shape, logical_axes, ctx.mesh, ctx.rules)
+    if require is not None and spec[list(logical_axes).index(require)] \
+            is None:
+        return x
+    for dim, (name, axes) in enumerate(zip(logical_axes, spec)):
+        if axes is None or name == "batch":
+            continue
+        idx, count = axes_index(ctx.mesh, axes)
+        size = x.shape[dim] // count
+        x = x.narrow(dim, idx * size, size)
+    return x

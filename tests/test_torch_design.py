@@ -28,6 +28,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_cores import share_cores  # noqa: E402
+
+share_cores(torch)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402

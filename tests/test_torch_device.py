@@ -17,6 +17,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_cores import share_cores  # noqa: E402
+
+share_cores(torch)
+
 from repro_torch.convert import (  # noqa: E402
     donn_state_from_jax, lm_params_from_jax, lm_train_state_from_jax,
     params_from_jax,

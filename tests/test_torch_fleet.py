@@ -26,6 +26,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_cores import share_cores  # noqa: E402
+
+share_cores(torch)
+
 import numpy as np  # noqa: E402
 
 from repro_torch.core.config import DONNConfig  # noqa: E402

@@ -24,6 +24,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_cores import share_cores  # noqa: E402
+
+share_cores(torch)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -197,8 +201,13 @@ def test_resumes_a_state_the_reference_saved(tmp_path, monkeypatch, capsys):
 
 
 def test_mesh_beyond_1x1_is_refused():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ttrain.main(BASE + ["--mesh", "2x1"])
+    """Meshes beyond 1x1 train (``test_torch_lm_mesh_ref.py``); refused
+    are a malformed ``--mesh`` and one whose model degree splits no
+    attention head, each before a step is taken."""
+    with pytest.raises(ValueError, match="DATAxMODEL"):
+        ttrain.main(BASE + ["--mesh", "2by1"])
+    with pytest.raises(RuntimeError, match="n_heads of 4 does not divide"):
+        ttrain.main(BASE + ["--mesh", "1x3", "--steps", "1"])
 
 
 def test_the_default_device_is_the_card():

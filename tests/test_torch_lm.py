@@ -19,6 +19,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_cores import share_cores  # noqa: E402
+
+share_cores(torch)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -518,12 +522,15 @@ def test_serve_cli_on_the_cpu_and_its_refusals(capsys):
                      "4", "--device", "cpu"])
     assert n == 12
     assert "[serve] 3/3 requests, 12 tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tserve.main(["--arch", "qwen1.5-4b", "--smoke", "--mesh", "2x1",
+    # meshes beyond 1x1 serve (test_torch_lm_mesh_ref.py); refused are a
+    # malformed --mesh and one whose model degree splits no head
+    with pytest.raises(ValueError, match="DATAxMODEL"):
+        tserve.main(["--arch", "qwen1.5-4b", "--smoke", "--mesh", "2by1",
                      "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tserve.main(["--arch", "qwen1.5-4b", "--smoke", "--mesh", "1x2",
-                     "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="n_heads of 4 does not divide"):
+        tserve.main(["--arch", "qwen1.5-4b", "--smoke", "--mesh", "1x3",
+                     "--slots", "3", "--requests", "1", "--prompt-len", "2",
+                     "--max-new", "1", "--device", "cpu"])
     capsys.readouterr()
     n = tserve.main(["--arch", "mixtral-8x7b", "--smoke", "--slots", "2",
                      "--requests", "3", "--prompt-len", "3", "--max-new",

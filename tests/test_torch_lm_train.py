@@ -30,6 +30,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_cores import share_cores  # noqa: E402
+
+share_cores(torch)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
@@ -328,8 +332,14 @@ def test_compile_train_step_places_copies_and_refuses_meshes():
     class Mesh2:
         shape = {"data": 2, "model": 1}
 
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tsteps.compile_train_step(tc, Mesh2(), specs, device="cpu")
+    # a mesh beyond one device is no longer refused: the placements are
+    # spec tuples (the ranks' steps run in test_torch_lm_mesh*.py)
+    _, s_place, b_place, _ = tsteps.compile_train_step(tc, Mesh2(), specs,
+                                                       device="cpu")
+    assert s_place["params"]["embed"]["table"] == (None, "data")
+    assert s_place["mu"]["blocks"]["attn"]["wq"] == (None, "data")
+    assert s_place["step"] == ()
+    assert b_place == {"tokens": ("data", None), "labels": ("data", None)}
 
 
 @pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])

@@ -123,7 +123,24 @@ script exits non-zero without the final line:
    5, a subprocess SIGTERM'd after step 10 (rc 143, then resumed), and the
    examples' train 200 / resume to 250 / serve 16 requests.  K1-K7
    launches across the phase: zero, asserted.
-11. lm_families — the audio, moe, hybrid and vlm LM families on the card
+11. dryrun — the dry-run tools (``launch/dryrun.py``,
+   ``runtime/cost_analysis.py``) held against the card, no kernel on
+   their path: ``launch.mesh.HBM_PER_DEVICE`` equals the card's
+   ``total_memory``; the qwen1.5-4b step of the lm_train phase (full width
+   and depth, batch 8 x seq 128, its optimizer, moments present) traced on
+   fake CUDA tensors on one rank, its peak live bytes within 5% of the
+   step-3 peak that phase measured; one real depth-2 step counted on the
+   card against its fake trace (FLOPs, dot FLOPs and bytes within 0.1%, no
+   collective bytes); the full step's compute and memory terms beside its
+   step-3 time on the stream (CUDA events; printed, not held); and three
+   production cells through the CLI in subprocesses started together
+   (fake CUDA tensors on a fake process group: qwen1.5-4b ``train_4k`` and
+   glm4-9b ``decode_32k`` on ``pod1-256``, donn-xl-500 ``train_b256`` on
+   ``pod1-256`` and ``pod2-512``), each record ``ok`` with its terms,
+   dominant term and roofline fraction printed, beside ``launch/perf.py
+   --cell donn`` (its two variants one program in the port: equal terms).
+   Zero K1-K7 launches, asserted.
+12. lm_families — the audio, moe, hybrid and vlm LM families on the card
    at full width, bf16 matmuls over f32 parameters, no kernel on their
    path (as in the reference): ``serve.main`` (8 slots, 24 requests,
    prompt 16, 32 new tokens, cache 128, once: tokens/s and peak memory)
@@ -144,7 +161,7 @@ script exits non-zero without the final line:
    with the tokens that route to another expert set on the card than on
    the CPU counted and their router margins printed.  K1-K7 launches
    across the phase: zero, asserted.
-12. persistence — artifacts, supervision, the fleet and rollback on the
+13. persistence — artifacts, supervision, the fleet and rollback on the
    card, every hold raising: ``donn-mnist-5l`` (f32, bf16, int8, f32 with
    ``rfft_first``), ``donn-rgb``, ``donn-seg`` and ``hybrid-slm-printed``
    are saved and cold-started with ``load_deployed`` (no device: the
@@ -167,7 +184,7 @@ script exits non-zero without the final line:
    card and the CPU copy, equal).  Its K1-K3 launches are held against
    what its engines' forwards and training steps owe.
 
-13. mesh — the multi-device slice, after every earlier phase: the
+14. mesh — the multi-device slice, after every earlier phase: the
    card's machine has one card and NCCL takes one rank a card, so the
    k > 1 paths run as k gloo ranks sharing it (``collectives.spawn_ranks``,
    2 ranks, then 4; collectives staged through the host).  Data parallel
@@ -189,7 +206,7 @@ script exits non-zero without the final line:
    rate.  Every hold is printed; the phase raises after the last if any
    failed.
 
-14. lm_mesh — LM tensor, data, sequence and expert parallelism over
+15. lm_mesh — LM tensor, data, sequence and expert parallelism over
    ``(data, model)`` meshes of gloo ranks sharing the card (4 ranks, then
    2): ``repro_torch.launch.serve.main --mesh 1x4`` and ``1x2`` serve
    qwen1.5-4b at full width and depth (8 slots, 24 requests, prompt 16, 32
@@ -219,10 +236,10 @@ to the bit and its batch row 1 alone equals the row inside its batch.
 
 Then one JSON line lists every kernel with its launches on the main path
 (DONN serving + training, the families, the design flow, LM serving,
-persistence, the mesh's ranks, LM training, the LM families, the LM
-mesh's ranks; the last five also under ``persistence_launches``,
-``mesh_launches``, ``lm_train_launches``, ``lm_families_launches`` and
-``lm_mesh_launches``)
+persistence, the mesh's ranks, LM training, the dry-run, the LM families,
+the LM mesh's ranks; the last six also under ``persistence_launches``,
+``mesh_launches``, ``lm_train_launches``, ``dryrun_launches``,
+``lm_families_launches`` and ``lm_mesh_launches``)
 and in the LM holds apart, its launches per training step on each engine,
 per family, per design part and per LM window, error and times, and the
 last line is the device record.
@@ -278,11 +295,14 @@ from repro_torch.data.synthetic import (  # noqa: E402
     batch_iterator, synth_digits, synth_rgb_scenes, synth_seg,
 )
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import dryrun as dry  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve, serve_donn  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.models import attention as lm_attn  # noqa: E402
 from repro_torch.models import get_config as lm_config  # noqa: E402
 from repro_torch.models import lm, moe, ssm  # noqa: E402
+from repro_torch.models.config import ShapeCell  # noqa: E402
 from repro_torch.models.layers import (  # noqa: E402
     apply_norm, apply_rotary, embed_tokens, rope_angles,
 )
@@ -293,6 +313,7 @@ from repro_torch.runtime import pencil_fft  # noqa: E402
 from repro_torch.runtime import sharding as shd  # noqa: E402
 from repro_torch.runtime import steps as lm_steps  # noqa: E402
 from repro_torch.runtime.collectives import spawn_ranks  # noqa: E402
+from repro_torch.runtime.cost_analysis import count as cost_count  # noqa
 from repro_torch.runtime.fleet import FleetRouter  # noqa: E402
 from repro_torch.runtime.inference import (  # noqa: E402
     InferenceEngine, MicroBatcher, expected_request_shape, freeze,
@@ -2685,9 +2706,14 @@ def _lm_train_run(arch: str, cfg, smi: str, profile) -> dict:
             torch.cuda.synchronize()
             peak["before"] = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
             out = run()
+            end.record()
             torch.cuda.synchronize()
             peak["step"] = torch.cuda.max_memory_allocated()
+            peak["ms"] = start.elapsed_time(end)
             return out
         tag = LM_PROFILE_TAGS.get(cfg.family)
         if k == LM_PROFILE_STEP and profile and tag:
@@ -2728,7 +2754,8 @@ def _lm_train_run(arch: str, cfg, smi: str, profile) -> dict:
                              "falling")
     torch.cuda.empty_cache()
     return {"steps_per_s": 1 / sec, "tokens_per_s": LM_TRAIN_TOKENS / sec,
-            "peak_gb": peak["step"] / 1e9, "losses": losses}
+            "peak_gb": peak["step"] / 1e9, "peak_bytes": peak["step"],
+            "step_ms": peak["ms"], "losses": losses}
 
 
 def _hold_lm_grads(what: str, got, want) -> None:
@@ -3011,11 +3038,13 @@ def _lm_control_flow(smi: str) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_lm_train(dev, smi: str, profile) -> dict:
+def phase_lm_train(dev, smi: str, profile) -> tuple:
     """LM training on the card: qwen1.5-4b at full width and depth and
     falcon-mamba-7b at full width, depth 16, through the launcher; the
     holds against CPU copies; the control flow; a full-width checkpoint.
-    Returns the phase's kernel launches (the path launches none)."""
+    Returns the phase's kernel launches (the path launches none) and
+    qwen1.5-4b's run (``_lm_train_run``: step LM_PEAK_STEP's peak bytes and
+    its time on the stream)."""
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
@@ -3040,6 +3069,220 @@ def phase_lm_train(dev, smi: str, profile) -> dict:
           f"phase {time.perf_counter() - t_phase:.1f}s")
     if any(launches.values()):
         raise AssertionError(f"the LM training path launched {launches}")
+    return launches, runs["qwen1.5-4b"]
+
+
+# --------------------------------------------------------------------------
+# dryrun: the dry-run's cost count held against the card's own step
+# --------------------------------------------------------------------------
+DRYRUN_PEAK_RTOL = 0.05  # traced peak vs the step's measured peak
+DRYRUN_COUNT_RTOL = 1e-3  # a fake trace's count vs the same real step's
+DRYRUN_HOLD_DEPTH = 2  # layers of the qwen1.5-4b step counted for real
+# production cells traced by the CLI in subprocesses (fake CUDA tensors)
+DRYRUN_CELLS = (("qwen1.5-4b", "train_4k", "single"),
+                ("glm4-9b", "decode_32k", "single"),
+                ("donn-xl-500", "train_b256", "both"))
+DRYRUN_PERF_CELL = "donn"  # launch/perf.py's variants traced beside them
+DRYRUN_TIMEOUT_S = 400.0
+
+
+def _launcher_optimizer() -> AdamW:
+    """``launch/train.py``'s optimizer at LM_TRAIN_FLAGS."""
+    return AdamW(lr=warmup_cosine(1e-3, 2, LM_TRAIN_STEPS),
+                 weight_decay=0.01, grad_clip_norm=1.0)
+
+
+def _token_specs(batch: int, seq: int) -> dict:
+    return {k: torch.empty((batch, seq), dtype=torch.int32, device="meta")
+            for k in ("tokens", "labels")}
+
+
+def _dryrun_start(tmp: str) -> list:
+    """The production cells' CLI runs, started together (host work: the
+    trace allocates nothing on the card)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"),
+           "OMP_NUM_THREADS": "1"}
+    runs = [["launch.dryrun", "--arch", a, "--shape", shape, "--mesh", m,
+             "--out", tmp] for a, shape, m in DRYRUN_CELLS]
+    runs.append(["launch.perf", "--cell", DRYRUN_PERF_CELL, "--out",
+                 os.path.join(tmp, "perf")])
+    return [subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.{mod}", *argv], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for mod, *argv in runs]
+
+
+def _dryrun_wait(p, what: str, bad: list) -> None:
+    try:
+        out, _ = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    if p.returncode != 0:
+        bad.append(f"{what}: rc {p.returncode}")
+        print(out[-4000:])
+
+
+def _dryrun_cells(procs: list, tmp: str, smi: str, bad: list) -> None:
+    """Wait for the CLI runs; each record ``ok`` with positive per-device
+    bytes; print its three terms, dominant term and roofline fraction.
+    The perf cell's variants, one program in the port, count alike."""
+    for (arch, shape, m), p in zip(DRYRUN_CELLS, procs):
+        _dryrun_wait(p, f"dryrun {arch} {shape} {m}", bad)
+        for pod in (("pod1", "pod2") if m == "both" else ("pod1",)):
+            path = os.path.join(tmp, f"{arch}__{shape}__{pod}.json")
+            rec = json.load(open(path)) if os.path.exists(path) else {}
+            ok = (rec.get("status") == "ok"
+                  and rec["memory"]["per_device_bytes"] > 0)
+            if not ok:
+                bad.append(f"dryrun {arch} {shape} {pod}: "
+                           f"{rec.get('status')}")
+                continue
+            t = rec["terms"]
+            print(f"[dryrun] {arch} {shape} {rec['mesh']} ({rec['chips']} "
+                  f"ranks, rank 0 traced on fake {rec['device']} tensors): "
+                  f"compute {t['compute_s'] * 1e3:.3f} ms, memory "
+                  f"{t['memory_s'] * 1e3:.3f} ms, collective "
+                  f"{t['collective_s'] * 1e3:.3f} ms a step, dominant "
+                  f"{rec['dominant']}, roofline fraction "
+                  f"{rec['roofline_fraction']:.4f}; per device "
+                  f"{rec['hlo_flops_per_dev']:.4e} FLOP "
+                  f"({rec['hlo_dot_flops_per_dev']:.4e} in dots), "
+                  f"{rec['hlo_bytes_per_dev']:.4e} B, collectives "
+                  f"{rec['collective_bytes_per_dev']:.4e} B "
+                  f"{rec['collective_breakdown']}, peak "
+                  f"{rec['memory']['per_device_bytes'] / 1e9:.2f} GB (fits "
+                  f"{rec['memory']['fits_hbm']}); {rec['ops']} ops traced in "
+                  f"{rec['compile_wall_s']:.1f} s ({smi} rates)")
+    _dryrun_wait(procs[-1], f"perf {DRYRUN_PERF_CELL}", bad)
+    recs, d = {}, os.path.join(tmp, "perf")
+    for name in sorted(os.listdir(d)) if os.path.isdir(d) else []:
+        rec = json.load(open(os.path.join(d, name)))
+        recs[rec["variant"]] = rec
+        print(f"[dryrun] perf {rec['cell']} {rec['variant']} "
+              f"{rec.get('mesh')}: {rec['status']}, terms "
+              f"{rec.get('terms')}, roofline fraction "
+              f"{rec.get('roofline_fraction')}, "
+              f"{rec.get('compile_wall_s', 0.0):.1f} s")
+    terms = [r.get("terms") for r in recs.values()]
+    if (len(recs) != 2 or any(r["status"] != "ok" for r in recs.values())
+            or terms[0] != terms[1]):
+        bad.append(f"perf {DRYRUN_PERF_CELL}: {sorted(recs)} {terms}")
+
+
+def _dryrun_count_hold(dev, cfg, smi: str, bad: list) -> None:
+    """One real qwen1.5-4b step (full width, DRYRUN_HOLD_DEPTH layers,
+    LM_TRAIN_FLAGS' batch) counted on the card against the fake trace of
+    the same step: FLOPs, dot FLOPs and bytes within DRYRUN_COUNT_RTOL, no
+    collective bytes on one rank."""
+    hcfg = dataclasses.replace(cfg, n_layers=DRYRUN_HOLD_DEPTH)
+    specs = _token_specs(8, 128)
+    opt = _launcher_optimizer()
+    fn, _, _, _ = lm_steps.compile_train_step(hcfg, None, specs,
+                                              optimizer=opt, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = lm_steps.init_train_state(hcfg, gen, opt)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 128), generator=gen,
+                              device=dev, dtype=torch.int32)
+             for k in specs}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    real = cost_count(fn, state, batch, device=dev)
+    torch.cuda.synchronize()
+    alloc_peak = torch.cuda.max_memory_allocated()
+    _free(state, batch)
+    torch.cuda.empty_cache()
+    fake = dry.trace_train_step(hcfg, specs, None, dev,
+                                optimizer=_launcher_optimizer())
+    rels = {k: abs(getattr(fake, k) - getattr(real, k))
+            / max(abs(getattr(real, k)), 1.0)
+            for k in ("flops", "dot_flops", "bytes")}
+    ok = (max(rels.values()) <= DRYRUN_COUNT_RTOL
+          and real.collective_bytes == fake.collective_bytes == 0)
+    print(f"[dryrun] qwen1.5-4b depth {DRYRUN_HOLD_DEPTH} train step, batch "
+          f"8 x seq 128, counted on the card vs traced on fake tensors: "
+          f"FLOPs {real.flops:.6e} vs {fake.flops:.6e}, dot FLOPs "
+          f"{real.dot_flops:.6e} vs {fake.dot_flops:.6e}, bytes "
+          f"{real.bytes:.6e} vs {fake.bytes:.6e} (largest gap "
+          f"{max(rels.values()):.2e}, held at {DRYRUN_COUNT_RTOL}), "
+          f"collective bytes {real.collective_bytes} and "
+          f"{fake.collective_bytes}, ops {real.ops} and {fake.ops}; peak "
+          f"{real.peak_bytes / 1e9:.3f} GB tracked on the card, "
+          f"{fake.peak_bytes / 1e9:.3f} GB traced, allocator "
+          f"{alloc_peak / 1e9:.3f} GB ({smi}){'' if ok else '  FAILED'}")
+    if not ok:
+        bad.append(f"count hold {rels}")
+
+
+def phase_dryrun(dev, smi: str, qwen_run: dict) -> dict:
+    """The dry-run tools on the card: ``HBM_PER_DEVICE``; the traced peak of
+    the lm_train phase's qwen1.5-4b step against its measured step-3 peak;
+    a real step's count against its trace; the full step's roofline terms
+    beside its time on the stream; three production cells through the
+    CLI.  Returns the phase's K1-K7 launches (none)."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[dryrun] total_memory {total} B, launch.mesh.HBM_PER_DEVICE "
+          f"{mesh_mod.HBM_PER_DEVICE} B")
+    if total != mesh_mod.HBM_PER_DEVICE:
+        raise AssertionError(f"HBM_PER_DEVICE {mesh_mod.HBM_PER_DEVICE} is "
+                             f"not the card's {total}")
+    bad = []
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    procs = _dryrun_start(tmp)
+    try:
+        cfg = lm_config("qwen1.5-4b")
+        t0 = time.perf_counter()
+        full = dry.trace_train_step(cfg, _token_specs(8, 128), None, dev,
+                                    optimizer=_launcher_optimizer())
+        t_full = time.perf_counter() - t0
+        gap = full.peak_bytes / qwen_run["peak_bytes"] - 1
+        print(f"[dryrun] qwen1.5-4b full width and depth, LM_TRAIN_FLAGS "
+              f"(batch 8 x seq 128), fake (1, 1) trace of the step, moments "
+              f"present: peak {full.peak_bytes / 1e9:.3f} GB (arguments "
+              f"{full.argument_bytes / 1e9:.3f} GB) against the lm_train "
+              f"phase's step-{LM_PEAK_STEP} peak "
+              f"{qwen_run['peak_bytes'] / 1e9:.3f} GB: {gap:+.2%} (held at "
+              f"{DRYRUN_PEAK_RTOL:.0%}); {full.ops} ops traced in "
+              f"{t_full:.1f} s ({smi})"
+              f"{'' if abs(gap) <= DRYRUN_PEAK_RTOL else '  FAILED'}")
+        if abs(gap) > DRYRUN_PEAK_RTOL:
+            bad.append(f"peak {gap:+.2%}")
+        model_flops = dry.lm_model_flops(
+            cfg, "train", ShapeCell("lm_train", 128, 8, "train"))[2]
+        roof = dry.roofline(full, model_flops, 1)
+        t = roof["terms"]
+        ms = qwen_run["step_ms"]
+        print(f"[dryrun] qwen1.5-4b step {LM_PEAK_STEP} on the card: "
+              f"{ms:.2f} ms on the stream (CUDA events); its count: "
+              f"{full.flops:.4e} FLOP ({full.dot_flops:.4e} in dots), "
+              f"{full.bytes:.4e} B; compute {t['compute_s'] * 1e3:.2f} ms "
+              f"at {mesh_mod.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s, memory "
+              f"{t['memory_s'] * 1e3:.2f} ms at "
+              f"{mesh_mod.HBM_BW / 1e12:.2f} TB/s: the step at "
+              f"{roof['bound_s'] * 1e3 / ms:.1%} of its "
+              f"{roof['dominant'][:-2]} bound; model FLOPs (6ND) "
+              f"{model_flops:.4e}, {model_flops / mesh_mod.PEAK_FLOPS_BF16 / ms * 1e3:.2%}"
+              f" of the bf16 peak over the step ({smi}; printed, not held)")
+        _dryrun_count_hold(dev, cfg, smi, bad)
+        _dryrun_cells(procs, tmp, smi, bad)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    print(f"[dryrun] K1-K7 launches across the phase: {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s")
+    if any(launches.values()):
+        bad.append(f"launches {launches}")
+    if bad:
+        raise AssertionError("dryrun holds failed: " + "; ".join(bad))
     return launches
 
 
@@ -4759,7 +5002,8 @@ def main(argv=None) -> int:
     families = phase_families(dev, smi, args.profile)
     design = phase_design(dev, smi, args.profile)
     lm_windows = phase_lm(dev, smi, args.profile)
-    lm_training = phase_lm_train(dev, smi, args.profile)
+    lm_training, qwen_run = phase_lm_train(dev, smi, args.profile)
+    dryrun_launches = phase_dryrun(dev, smi, qwen_run)
     lm_families = phase_lm_families(dev, smi, args.profile)
     persistence = phase_persistence(dev, smi)
     mesh = phase_mesh(dev, smi)
@@ -4774,8 +5018,8 @@ def main(argv=None) -> int:
             "replaces": replaces,
             # the main path: DONN serving and training, the advanced
             # families, the design flow, LM serving, persistence and the
-            # fleet, the mesh's ranks, LM training, the LM families and
-            # the LM mesh's ranks (none); the LM holds
+            # fleet, the mesh's ranks, LM training, the dry-run, the LM
+            # families and the LM mesh's ranks (none); the LM holds
             # (K6 on q/k, K7 on the mixer tensors) apart
             "launches": (launches[name] + train["counted"][name]
                          + sum(f[name] for f in families.values())
@@ -4783,7 +5027,8 @@ def main(argv=None) -> int:
                          + sum(v for w, v in lm_launches.items()
                                if w.startswith("lm_serve"))
                          + persistence[name] + mesh[name]
-                         + lm_training[name] + lm_families[name]
+                         + lm_training[name] + dryrun_launches[name]
+                         + lm_families[name]
                          + lm_meshes[name]),
             "hold_launches": sum(v for w, v in lm_launches.items()
                                  if w.startswith("lm_hold")),
@@ -4796,6 +5041,7 @@ def main(argv=None) -> int:
             "persistence_launches": persistence[name],
             "mesh_launches": mesh[name],
             "lm_train_launches": lm_training[name],
+            "dryrun_launches": dryrun_launches[name],
             "lm_families_launches": lm_families[name],
             "lm_mesh_launches": lm_meshes[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -24,4 +24,15 @@ LM_CONFIGS = {m.NAME: m.cfgs() for m in (
     llama_3_2_vision_11b, musicgen_medium, falcon_mamba_7b,
     recurrentgemma_9b)}
 
-__all__ = ["CONFIGS", "LM_CONFIGS", "get_config"]
+# the dry-run's sweep, in the reference's order (``repro.configs``)
+LM_ARCHS = (
+    "glm4-9b", "granite-8b", "qwen1.5-4b", "qwen2.5-14b", "mixtral-8x7b",
+    "arctic-480b", "llama-3.2-vision-11b", "musicgen-medium",
+    "falcon-mamba-7b", "recurrentgemma-9b",
+)
+DONN_ARCHS = (
+    "donn-mnist-3l", "donn-mnist-5l", "donn-chip", "donn-rgb", "donn-seg",
+    "donn-xl-500",
+)
+
+__all__ = ["CONFIGS", "DONN_ARCHS", "LM_ARCHS", "LM_CONFIGS", "get_config"]

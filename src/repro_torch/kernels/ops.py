@@ -42,6 +42,7 @@ import math
 import threading
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import build, ref
 
@@ -68,7 +69,13 @@ def _count(name: str) -> None:
 
 
 def _on_card(name: str, *tensors) -> bool:
-    """True for CUDA inputs (launch the kernel), False for CPU ones."""
+    """True for CUDA inputs (launch the kernel), False for CPU ones.  A
+    fake tensor (a dry-run's trace) raises: neither the kernel nor its
+    plain version may stand in for the other in a count."""
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise RuntimeError(
+            f"{name}: a fake tensor reached a hand-written kernel's wrapper; "
+            "the dry-run traces configs with use_pallas=False")
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:

@@ -15,6 +15,10 @@ query heads (``n_heads`` over ``model``) against the KV heads they group
 onto: the local ``wk``/``wv`` columns when ``n_kv_heads`` divides the
 model degree, else the gathered projection's heads picked per query head;
 ``wo`` is row-parallel and the output leaves through ``MeshContext.exit``.
+Where ``n_heads`` does not divide the model degree
+(``MeshContext.whole_heads``) every ``model`` rank runs every head with
+the weights gathered whole, and its whole output is cut to the rank's
+block of the sequence.
 Decode keeps the cache's placement: with ``kv_heads`` over ``model`` each
 rank decodes its own heads as training does; with the ``head`` fallback
 on ``head_dim`` it follows the reference's ``constrain`` hints: q and the
@@ -75,8 +79,10 @@ def qkv_proj(p, x, cfg: LMConfig, kv_x=None, cross: bool = False):
     dt = cfg.dtype
     spec = attention_spec(cfg, cross=cross)
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    h_lo, h_hi = ctx.part(H, "n_heads")
-    m = ctx.size("model")
+    whole = ctx.whole_heads(H)
+    h_lo, h_hi = (0, H) if whole else ctx.part(H, "n_heads")
+    m = 1 if whole else ctx.size("model")
+    cols = None if whole else 1
     B, S, _ = x.shape
     kv_src = x if kv_x is None else kv_x
 
@@ -87,11 +93,11 @@ def qkv_proj(p, x, cfg: LMConfig, kv_x=None, cross: bool = False):
                                        None if dim is None else 0).to(dt)
         return out
 
-    q = proj(x, "wq", "bq", 1).reshape(B, S, h_hi - h_lo, Dh)
+    q = proj(x, "wq", "bq", cols).reshape(B, S, h_hi - h_lo, Dh)
     Skv = kv_src.shape[1]
     if KV % m == 0:
-        k = proj(kv_src, "wk", "bk", 1).reshape(B, Skv, KV // m, Dh)
-        v = proj(kv_src, "wv", "bv", 1).reshape(B, Skv, KV // m, Dh)
+        k = proj(kv_src, "wk", "bk", cols).reshape(B, Skv, KV // m, Dh)
+        v = proj(kv_src, "wv", "bv", cols).reshape(B, Skv, KV // m, Dh)
         return q, k, v
     G = H // KV
     idx = torch.tensor([h // G for h in range(h_lo, h_hi)], device=x.device)
@@ -136,7 +142,7 @@ def _mesh_decode_out(ctx, p, qg, ck, cv, allow, cfg: LMConfig, cross=False):
     if head_split:
         o = all_gather_dim(o.contiguous(), ctx.group("model"), -1)
     o = o.movedim(3, 1).reshape(B, 1, H * Dh).to(cfg.dtype)
-    lo, hi = (h * Dh for h in ctx.part(H, "n_heads"))
+    lo, hi = ctx.part(H * Dh, "the heads' columns")
     wo = ctx.model_part(p["wo"], spec["wo"], 0).to(cfg.dtype)
     return o[..., lo:hi] @ wo
 
@@ -228,9 +234,11 @@ def self_attention(
         q, k, v, causal=True, window=w, chunk=cfg.attn_chunk,
         p_bf16=cfg.attn_p_bf16,
     )
+    whole = ctx.whole_heads(cfg.n_heads)
     out = out.reshape(B, S, -1) @ ctx.model_part(
-        p["wo"], attention_spec(cfg)["wo"], 0).to(cfg.dtype)
-    return ctx.exit(out)
+        p["wo"], attention_spec(cfg)["wo"], None if whole else 0
+    ).to(cfg.dtype)
+    return ctx.exit(out, whole)
 
 
 # ------------------------------------------------------------------ decode
@@ -346,6 +354,8 @@ def cross_attention(p, x, vision_kv, cfg: LMConfig):
     ct = torch.promote_types(vision_kv.dtype, dt)
     q, k, v = qkv_proj(p, x, cfg, kv_x=vision_kv.to(ct), cross=True)
     out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    wo = ctx.model_part(p["wo"], attention_spec(cfg, cross=True)["wo"], 0)
-    out = ctx.exit(out.reshape(B, S, -1) @ wo.to(dt))
+    whole = ctx.whole_heads(cfg.n_heads)
+    wo = ctx.model_part(p["wo"], attention_spec(cfg, cross=True)["wo"],
+                        None if whole else 0)
+    out = ctx.exit(out.reshape(B, S, -1) @ wo.to(dt), whole)
     return out * torch.tanh(p["gate"].to(dt))

@@ -19,7 +19,10 @@ On an LM mesh (``repro_torch.runtime.sharding.context()``) the ``lru``
 channels (``mlp``) and the gate heads (``heads``) are split over
 ``model``, a rank's heads being exactly its channels' blocks; the block
 enters with the whole sequence and leaves through the row-parallel
-``w_out``.  A mesh that would split one and not the other is refused.
+``w_out``.  Where ``n_heads`` does not divide the model degree
+(``MeshContext.whole_heads``) every ``model`` rank runs the whole block
+on the gathered weights and states and keeps its channels of the new
+states.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repro_torch.models.layers import _gelu
 from repro_torch.models.ssm import _causal_conv
 from repro_torch.nn import ParamSpec
 from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.collectives import all_gather_dim
 
 RG_C = 8.0
 
@@ -114,17 +118,21 @@ def apply_rglru_block(
     channels.
     """
     ctx = shd.context()
-    m = ctx.size("model")
-    if cfg.lru_width % m == 0 and cfg.n_heads % m:
-        raise ValueError(
-            f"{cfg.name}: lru_width {cfg.lru_width} splits over the {m} "
-            f"'model' ranks but n_heads {cfg.n_heads} does not: the gates' "
-            "head blocks would not be the rank's channels")
-    h_lo, h_hi = ctx.part(cfg.n_heads, "n_heads")
+    whole = ctx.whole_heads(cfg.n_heads)
+    h_lo, h_hi = (0, cfg.n_heads) if whole else ctx.part(cfg.n_heads,
+                                                         "n_heads")
     spec = rglru_spec(cfg)
+    # whole heads: the states' channels are gathered, and the new states
+    # cut back to this rank's channels
+    cut = whole and conv_state is not None and \
+        conv_state.shape[-1] != cfg.lru_width
+    if cut:
+        g = ctx.group("model")
+        conv_state = all_gather_dim(conv_state.contiguous(), g, -1)
+        lru_state = all_gather_dim(lru_state.contiguous(), g, -1)
 
     def w(name, dim):
-        return ctx.model_part(p[name], spec[name], dim)
+        return ctx.model_part(p[name], spec[name], None if whole else dim)
 
     x = ctx.enter(x)
     B = x.shape[0]
@@ -145,4 +153,7 @@ def apply_rglru_block(
                            device=x.device))
     y, h = _lru_scan(a_t, gated, h0, cfg.scan_chunk)
     out = (y.to(dt) * x2) @ w("w_out", 0).to(dt)
-    return ctx.exit(out), (new_conv, h)
+    if cut:
+        lo, hi = ctx.part(cfg.lru_width, "lru_width")
+        new_conv, h = new_conv[..., lo:hi], h[..., lo:hi]
+    return ctx.exit(out, whole), (new_conv, h)

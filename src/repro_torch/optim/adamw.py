@@ -29,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.collectives import all_reduce_sum
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -179,8 +180,7 @@ def global_norm(tree, pspecs=None, mesh=None) -> torch.Tensor:
 
     tot = sum(tree_leaves(tree_map(share, tree, pspecs)))
     if math.prod(sizes.values()) > 1:
-        tot = tot.clone()
-        dist.all_reduce(tot)
+        tot = all_reduce_sum(tot, dist.group.WORLD)
     return torch.sqrt(tot)
 
 

@@ -40,6 +40,17 @@ A reduce-scatter runs as NCCL's own on a NCCL group and as an all-reduce
 and a cut on gloo (whose reduce-scatter of CUDA tensors the port does not
 rely on).
 
+A group of two or more mesh axes named in another order than the mesh's
+(``sharding._flat_group``) has its members' order recorded by
+``set_block_order``: the gather and the reduce-scatter put block i at the
+i-th of them, not at group rank i.
+
+Each logical collective (``all_reduce_sum``, ``all_gather_dim``,
+``reduce_scatter_dim``, ``exchange``, ``all_max``) reports its kind, its
+bytes and its group's size once to the active cost counters
+(``runtime.cost_analysis``), whatever the backend runs to carry it out;
+with no counter active the report is an empty context.
+
 Complex tensors travel as ``view_as_real`` float pairs (gloo does not take
 complex ones everywhere).  Gloo also takes CUDA tensors, staged through the
 host, which lets several ranks share one card.
@@ -49,6 +60,7 @@ file rendezvous and returns what each rank returned.
 """
 from __future__ import annotations
 
+import contextlib
 import multiprocessing
 import queue
 import tempfile
@@ -57,6 +69,57 @@ import traceback
 
 import torch
 import torch.distributed as dist
+
+
+# the active cost counters (``runtime.cost_analysis.count``)
+COUNTERS: list = []
+_NOT_COUNTED = contextlib.nullcontext()
+# group -> its members' global ranks in block order, where that is not the
+# group's own rank order (``set_block_order``)
+_BLOCK_RANKS: dict = {}
+
+
+def _counted(kind: str, t: torch.Tensor, group):
+    """The context of one logical collective of ``kind`` on ``t`` (the
+    input) over ``group``: each active counter records it once and skips
+    the aten ops that carry it out."""
+    if not COUNTERS:
+        return _NOT_COUNTED
+    stack = contextlib.ExitStack()
+    size = dist.get_world_size(group)
+    for c in COUNTERS:
+        stack.enter_context(c.collective(kind, t, size))
+    return stack
+
+
+def set_block_order(group, ranks) -> None:
+    """Record that block i of a gather or reduce-scatter over ``group``
+    belongs to global rank ``ranks[i]`` (the group itself ranks its
+    members by global rank)."""
+    ranks = [int(r) for r in ranks]
+    if ranks != sorted(ranks):
+        _BLOCK_RANKS[group] = ranks
+
+
+def block_ranks(group) -> list:
+    """The global ranks of ``group`` in block order."""
+    return _BLOCK_RANKS.get(group) or dist.get_process_group_ranks(group)
+
+
+def _block_perm(group):
+    """Group ranks in block order (None when that is the group's order)."""
+    ranks = _BLOCK_RANKS.get(group)
+    if ranks is None:
+        return None
+    by_rank = sorted(ranks)
+    return [by_rank.index(r) for r in ranks]
+
+
+def _block_index(group) -> int:
+    ranks = _BLOCK_RANKS.get(group)
+    if ranks is None:
+        return dist.get_rank(group)
+    return ranks.index(dist.get_rank())
 
 
 def _real(t: torch.Tensor) -> torch.Tensor:
@@ -72,20 +135,26 @@ def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """A new tensor: the sum of ``t`` over ``group`` (None: ``t`` alone)."""
     if group is None:
         return t.clone()
-    buf = _real(t).clone()
-    dist.all_reduce(buf, group=group)
-    return _like(buf, t)
+    with _counted("all-reduce", t, group):
+        buf = _real(t).clone()
+        dist.all_reduce(buf, group=group)
+        return _like(buf, t)
 
 
 def all_gather_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """``t`` of every rank of ``group``, concatenated along ``dim`` in rank
+    """``t`` of every rank of ``group``, concatenated along ``dim`` in block
     order (None: ``t`` alone)."""
     if group is None:
         return t
-    buf = _real(t)
-    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, buf, group=group)
-    return torch.cat([_like(p, t) for p in parts], dim=dim)
+    with _counted("all-gather", t, group):
+        buf = _real(t)
+        parts = [torch.empty_like(buf)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, buf, group=group)
+        perm = _block_perm(group)
+        if perm is not None:
+            parts = [parts[j] for j in perm]
+        return torch.cat([_like(p, t) for p in parts], dim=dim)
 
 
 def reduce_scatter_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -93,27 +162,37 @@ def reduce_scatter_dim(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     rank; this rank's block (None: ``t`` alone)."""
     if group is None:
         return t
-    n, idx = dist.get_world_size(group), dist.get_rank(group)
+    n, idx = dist.get_world_size(group), _block_index(group)
     if t.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not divide "
                          f"over {n} ranks")
     size = t.shape[dim] // n
-    if dist.get_backend(group) == "nccl" and not t.is_complex():
-        parts = t.movedim(dim, 0).contiguous()
-        out = torch.empty((size,) + parts.shape[1:], dtype=t.dtype,
-                          device=t.device)
-        dist.reduce_scatter_tensor(out, parts, group=group)
-        return out.movedim(0, dim)
-    return all_reduce_sum(t, group).narrow(dim, idx * size, size).contiguous()
+    with _counted("reduce-scatter", t, group):
+        if dist.get_backend(group) == "nccl" and not t.is_complex():
+            parts = t.movedim(dim, 0).contiguous()
+            perm = _block_perm(group)
+            if perm is not None:  # group rank r takes block perm.index(r)
+                order = [perm.index(r) for r in range(n)]
+                parts = parts.unflatten(0, (n, size))[order].flatten(0, 1)
+            out = torch.empty((size,) + parts.shape[1:], dtype=t.dtype,
+                              device=t.device)
+            dist.reduce_scatter_tensor(out, parts, group=group)
+            return out.movedim(0, dim)
+        return all_reduce_sum(t, group).narrow(dim, idx * size,
+                                               size).contiguous()
 
 
 def exchange(t: torch.Tensor, group) -> torch.Tensor:
     """All-to-all over dim 0: slot j of ``t`` goes to rank j of ``group``,
     and slot j of the result came from rank j."""
-    buf = _real(t)
-    out = torch.empty_like(buf)
-    dist.all_to_all_single(out, buf, group=group)
-    return _like(out, t)
+    if group in _BLOCK_RANKS:
+        raise NotImplementedError("an all-to-all over mesh axes named out "
+                                  "of the mesh's order")
+    with _counted("all-to-all", t, group):
+        buf = _real(t)
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf, group=group)
+        return _like(out, t)
 
 
 class _SumOver(torch.autograd.Function):
@@ -142,7 +221,7 @@ class _GatherRows(torch.autograd.Function):
     def forward(ctx, t, group, reduce_grad):
         ctx.group, ctx.reduce_grad = group, reduce_grad
         ctx.rows = t.shape[-2]
-        ctx.index = dist.get_rank(group)
+        ctx.index = _block_index(group)
         return all_gather_dim(t, group, -2)
 
     @staticmethod
@@ -217,9 +296,10 @@ def all_max(t: torch.Tensor, group) -> torch.Tensor:
     t = t.detach()
     if group is None:
         return t
-    buf = t.clone()
-    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
-    return buf
+    with _counted("all-reduce", t, group):
+        buf = t.clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+        return buf
 
 
 def sum_over(t: torch.Tensor, group) -> torch.Tensor:

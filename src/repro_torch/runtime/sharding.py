@@ -33,6 +33,7 @@ import math
 import os
 from typing import Any, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -138,20 +139,31 @@ def make_mesh_2d(data: int = 1, model: int = 1, *, device=None,
     """The 2-D ``(data, model)`` ``DeviceMesh`` every DONN consumer uses.
 
     ``data`` x ``model`` ranks: batch over ``data``, field rows over
-    ``model``.  Without a process group one is initialised from the
-    environment (``env://``: ``MASTER_ADDR``, ``RANK``, ``WORLD_SIZE``),
-    or, for a 1x1 mesh with no such environment, as a group of this one
-    process.  ``backend`` defaults to NCCL for a CUDA ``device`` and gloo
-    for the CPU (gloo ranks may share one card).  The mesh spans the whole
-    world: every rank runs the same program on its block (SPMD).
+    ``model`` (``make_device_mesh``).
     """
-    need = int(data) * int(model)
+    return make_device_mesh((data, model), ("data", "model"), device=device,
+                            backend=backend)
+
+
+def make_device_mesh(shape, axes, *, device=None,
+                     backend: Optional[str] = None):
+    """A ``DeviceMesh`` of ``shape`` over the named ``axes`` spanning every
+    rank of the process group (SPMD: every rank runs the same program on
+    its block).
+
+    Without a process group one is initialised from the environment
+    (``env://``: ``MASTER_ADDR``, ``RANK``, ``WORLD_SIZE``), or, for a
+    mesh of one rank with no such environment, as a group of this one
+    process.  ``backend`` defaults to NCCL for a CUDA ``device`` and gloo
+    for the CPU (gloo ranks may share one card).
+    """
+    shape = tuple(int(n) for n in shape)
+    need = math.prod(shape)
     have = world_size()
+    what = " x ".join(f"{n} {a}" for n, a in zip(shape, axes))
     if need > have:
-        raise ValueError(
-            f"make_mesh_2d needs {need} ranks ({data} data x {model} model), "
-            f"have {have}"
-        )
+        raise ValueError(f"a mesh of {need} ranks ({what}) needs {need} "
+                         f"ranks, have {have}")
     dev = resolve_device(device)
     if not dist.is_initialized():
         backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
@@ -162,13 +174,12 @@ def make_mesh_2d(data: int = 1, model: int = 1, *, device=None,
                                     rank=0, world_size=1)
     if need != dist.get_world_size():
         raise ValueError(
-            f"make_mesh_2d: a {data}x{model} mesh must span every rank of "
-            f"the process group ({dist.get_world_size()})"
+            f"a mesh of {what} must span every rank of the process group "
+            f"({dist.get_world_size()})"
         )
     from torch.distributed.device_mesh import init_device_mesh
 
-    return init_device_mesh(dev.type, (int(data), int(model)),
-                            mesh_dim_names=("data", "model"))
+    return init_device_mesh(dev.type, shape, mesh_dim_names=tuple(axes))
 
 
 def _axis_size(shape: Mapping, axes) -> int:
@@ -351,18 +362,58 @@ def local_block(t, spec: Sequence, mesh) -> torch.Tensor:
 def axes_group(mesh, axes):
     """The process group of the ranks that differ only along ``axes``: the
     named axis's group when one of them holds more than one rank, the
-    whole world when they cover every axis of the mesh (it spans the
-    world, a 1x1 mesh too), else None (this rank alone)."""
+    whole world when they cover every axis of the mesh in its order (it
+    spans the world, a 1x1 mesh too), None when none holds more than one
+    rank (this rank alone), else the group of those axes flattened in the
+    order named (``_flat_group``)."""
     sizes = mesh_shape(mesh)
     flat = _flat_axes(axes)
-    wide = [a for a in flat if sizes.get(a, 1) > 1]
+    wide = tuple(a for a in flat if sizes.get(a, 1) > 1)
     if len(wide) == 1:
         return mesh.get_group(wide[0])
-    if set(flat) >= set(sizes):
+    if set(flat) >= set(sizes) and wide == tuple(
+            a for a, n in sizes.items() if n > 1):
         return dist.group.WORLD
     if not wide:
         return None
-    raise NotImplementedError(f"no process group for axes {axes!r}")
+    return _flat_group(mesh, wide)
+
+
+def _flat_group(mesh, axes: tuple):
+    """The group of the ranks that differ only along ``axes`` (two or more
+    of the mesh's axes), its blocks in ``axes_index``'s order for this
+    order of the names: block i of a gather or a reduce-scatter over it is
+    the rank at index i.
+
+    ``dist.new_group`` ranks a group's members by global rank, which is
+    that order only when the names come in the mesh's order (``("pod",
+    "data")``); for another order (``("data", "pod")``, the FSDP rule)
+    ``collectives.set_block_order`` records the members' order, and the
+    collectives put each block in its place.  Every rank creates every
+    group of the tuple in the same order (``new_group`` is collective), one
+    group a tuple of names, cached on the mesh.
+    """
+    from repro_torch.runtime.collectives import set_block_order
+
+    cache = mesh.__dict__.setdefault("_repro_flat_groups", {})
+    if axes not in cache:
+        names = list(mesh.mesh_dim_names)
+        perm = ([i for i, a in enumerate(names) if a not in axes]
+                + [names.index(a) for a in axes])
+        count = group_count(mesh, axes)
+        me = dist.get_rank()
+        # the rank grid outside any dispatch mode (a dry-run trace may be
+        # counting, on fake tensors)
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        with _disable_current_modes():
+            grid = np.array(mesh.mesh.tolist())
+        for ranks in grid.transpose(perm).reshape(-1, count).tolist():
+            group = dist.new_group(ranks)
+            if me in ranks:
+                set_block_order(group, ranks)
+                cache[axes] = group
+    return cache[axes]
 
 
 def group_count(mesh, axes) -> int:
@@ -404,7 +455,8 @@ def abstract_like(specs):
                                           device="meta"), specs)
 
 
-def _block_shape(shape, spec, mesh) -> tuple:
+def block_shape(shape, spec, mesh) -> tuple:
+    """The shape of this rank's block of a ``shape`` leaf under ``spec``."""
     out = list(shape)
     for dim, axes in enumerate(spec):
         if axes is not None:
@@ -416,7 +468,7 @@ def sharded_zeros(specs, mesh, rules=None, device=None):
     """This rank's zero blocks of a ``ParamSpec`` tree on ``mesh``."""
     dev = resolve_device(device)
     return tree_map(lambda s: torch.zeros(
-        _block_shape(s.shape, spec_sharding(s, mesh, rules), mesh),
+        block_shape(s.shape, spec_sharding(s, mesh, rules), mesh),
         dtype=s.dtype, device=dev), specs)
 
 
@@ -544,14 +596,28 @@ class MeshContext:
         return gather_dim(x, self.group("model"), 1) if self.seq_sharded \
             else x
 
-    def exit(self, y):
+    def whole_heads(self, n_heads: int) -> bool:
+        """True where ``n_heads`` does not divide over ``model``: the block
+        then runs every head on every ``model`` rank, its weights gathered
+        whole and its output whole (``exit(y, whole=True)``), as the
+        reference replicates a dim that does not divide."""
+        return n_heads % self.size("model") != 0
+
+    def exit(self, y, whole: bool = False):
         """A block's partial sums over ``model`` (whole sequence) -> the
-        residual stream: reduce-scattered over the sequence, or summed."""
+        residual stream: reduce-scattered over the sequence, or summed.
+        A ``whole`` output (every rank the same sum) is cut to this rank's
+        block of the sequence, or kept."""
         from repro_torch.runtime.collectives import psum, scatter_dim
 
         g = self.group("model")
         if g is None:
             return y
+        if whole:
+            if not self.seq_sharded:
+                return y
+            lo, hi = self.part(y.shape[1], "the sequence")
+            return y[:, lo:hi]
         dt = y.dtype
         y = y.float()  # partial sums add in f32
         y = scatter_dim(y, g, 1) if self.seq_sharded else psum(y, g)

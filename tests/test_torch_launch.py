@@ -202,11 +202,13 @@ def test_resumes_a_state_the_reference_saved(tmp_path, monkeypatch, capsys):
 
 def test_mesh_beyond_1x1_is_refused():
     """Meshes beyond 1x1 train (``test_torch_lm_mesh_ref.py``); refused
-    are a malformed ``--mesh`` and one whose model degree splits no
-    attention head, each before a step is taken."""
+    are a malformed ``--mesh`` and one whose model degree splits neither
+    the heads (run whole on every rank, ``test_torch_lm_whole_heads.py``)
+    nor the MLP's columns, each before a step is taken."""
     with pytest.raises(ValueError, match="DATAxMODEL"):
         ttrain.main(BASE + ["--mesh", "2by1"])
-    with pytest.raises(RuntimeError, match="n_heads of 4 does not divide"):
+    with pytest.raises(RuntimeError, match=r"dim 1 of \(64, 128\) of 128 "
+                       "does not divide over the 3 ranks"):
         ttrain.main(BASE + ["--mesh", "1x3", "--steps", "1"])
 
 

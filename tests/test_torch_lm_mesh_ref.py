@@ -68,7 +68,6 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import get_config, lm  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
-from repro_torch.models import rglru as trglru  # noqa: E402
 from repro_torch.optim import compression as tcomp  # noqa: E402
 from repro_torch.optim.adamw import global_norm  # noqa: E402
 from repro_torch.runtime import sharding as shd  # noqa: E402
@@ -607,9 +606,10 @@ def test_blocks_drawn_and_converted_leaf_by_leaf_equal_the_cut_tree(coord):
 
 def test_mesh_refusals():
     _, tc = _cfgs("recurrentgemma-9b")  # lru 64 splits over 8, 4 heads not
-    with shd.activation_sharding(_FakeMesh(1, 8)):
-        with pytest.raises(ValueError, match="n_heads 4 does not"):
-            trglru.apply_rglru_block(None, torch.zeros(1, 8, 64), tc)
+    # no refusal: every model rank runs the whole block (held against one
+    # rank by test_torch_lm_whole_heads.py)
+    assert shd.MeshContext(_FakeMesh(1, 8)).whole_heads(tc.n_heads)
+    assert not shd.MeshContext(_FakeMesh(1, 4)).whole_heads(tc.n_heads)
     ctx = shd.MeshContext(_FakeMesh(2, 1))
     with pytest.raises(ValueError, match="straddles"):
         tmoe._group_size(ctx, 1, 8, 16)  # a 16-token group over 2 ranks

@@ -500,6 +500,8 @@ def test_selective_scan_grads_match_jax():
 def test_launch_mesh_refusals_need_no_process_group():
     with pytest.raises(ValueError, match="needs 2 ranks"):
         tmesh.make_host_mesh(2, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="2-D"):
+    with pytest.raises(ValueError, match="needs 8 ranks"):
         tmesh.make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    with pytest.raises(NotImplementedError, match="meshes"):
+        tmesh.make_mesh((2, 2), ("model", "data"), device="cpu")
     assert not torch.distributed.is_initialized()

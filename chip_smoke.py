@@ -207,8 +207,8 @@ script exits non-zero without the final line:
    failed.
 
 15. lm_mesh — LM tensor, data, sequence and expert parallelism over
-   ``(data, model)`` meshes of gloo ranks sharing the card (4 ranks, then
-   2): ``repro_torch.launch.serve.main --mesh 1x4`` and ``1x2`` serve
+   ``(data, model)`` meshes of gloo ranks sharing the card (4 ranks, 3,
+   then 2): ``repro_torch.launch.serve.main --mesh 1x4`` and ``1x2`` serve
    qwen1.5-4b at full width and depth (8 slots, 24 requests, prompt 16, 32
    new tokens, cache 128; tokens/s and each rank's peak memory);
    ``repro_torch.launch.train.main --mesh 2x2`` trains it at full width,
@@ -220,7 +220,10 @@ script exits non-zero without the final line:
    8 decode steps within 1e-5; decode within 1e-5 of the prefill) for
    qwen1.5-4b at (2, 2) depth 2, falcon-mamba-7b at (1, 2) depth 2 and
    mixtral-8x7b at (1, 2) depth 1 (4 experts a rank; the tokens routed
-   differently from one rank counted, their margins printed).  Zero K1-K7
+   differently from one rank counted, their margins printed), and
+   qwen1.5-4b at (1, 3) depth 2, where its 20 heads and its vocabulary of
+   151936 do not divide and run whole on every rank beside the split MLP
+   (6912 = 3 x 2304); each hold's time printed.  Zero K1-K7
    launches over every rank.  With 2+ cards the serving launcher runs
    again as NCCL ranks, one a card; on one card that path does not run.
 
@@ -4515,6 +4518,7 @@ def phase_mesh(dev, smi: str) -> dict:
 # --------------------------------------------------------------------------
 LM_MESH_TRAIN = (8, 4)  # depth, launcher steps of qwen1.5-4b at 2x2
 LM_MESH_HOLDS = {4: (("qwen1.5-4b", (2, 2), 2),),
+                 3: (("qwen1.5-4b", (1, 3), 2),),  # heads, vocab whole
                  2: (("falcon-mamba-7b", (1, 2), 2),
                      ("mixtral-8x7b", (1, 2), 1))}  # arch, mesh, depth
 LM_MESH_HOLD = (2, 16, 8)  # batch, seq, decode steps of the f32 holds
@@ -4823,7 +4827,7 @@ def _lm_mesh_rank(rank: int, world: int, tmp: str,
         out["train"] = _mesh_train(tmp, dev)
         out["serve"] = _mesh_serve("1x4", dev)
         out["elastic"] = _mesh_elastic_save(dev, tmp)
-    else:
+    elif world == 2:
         out["serve"] = _mesh_serve("1x2", dev)
         out["elastic"] = _mesh_elastic_restore(dev, tmp)
     out["holds"] = [_mesh_hold(dev, arch, shape, depth)
@@ -4844,14 +4848,15 @@ def _lm_mesh_report(world: int, ranks: list, smi: str, bad: list,
             bad.append(f"{world} ranks: {what}")
 
     r0 = ranks[0]
-    peaks = [round(r["serve"]["peak_gb"], 2) for r in ranks]
-    sv = r0["serve"]
-    hold(f"qwen1.5-4b serving at 1x{world} (full width and depth, "
-         f"{lm_config('qwen1.5-4b').dtype} matmuls)",
-         sv["served"] == 24 * 32,
-         f"{sv['served']} tokens, {sv['tok_s']:.1f} tok/s (8 slots, 24 "
-         f"requests, prompt 16, 32 new tokens, cache 128); each rank's peak "
-         f"memory {peaks} GB ({smi})")
+    if "serve" in r0:
+        peaks = [round(r["serve"]["peak_gb"], 2) for r in ranks]
+        sv = r0["serve"]
+        hold(f"qwen1.5-4b serving at 1x{world} (full width and depth, "
+             f"{lm_config('qwen1.5-4b').dtype} matmuls)",
+             sv["served"] == 24 * 32,
+             f"{sv['served']} tokens, {sv['tok_s']:.1f} tok/s (8 slots, 24 "
+             f"requests, prompt 16, 32 new tokens, cache 128); each rank's "
+             f"peak memory {peaks} GB ({smi})")
     if "train" in r0:
         tr = r0["train"]
         secs = tr["step_seconds"]
@@ -4871,7 +4876,7 @@ def _lm_mesh_report(world: int, ranks: list, smi: str, bad: list,
              f"{[round(g, 3) for g in tr['gloo_s'][1:]]} s, a share "
              f"{share} of those steps; each rank's peak memory "
              f"{[round(r['train']['peak_gb'], 2) for r in ranks]} GB ({smi})")
-    el = r0["elastic"]
+    el = r0.get("elastic", {})
     if "save_s" in el:
         print(f"{tag}: elastic state ({LM_MESH_ELASTIC[0]} full width, depth "
               f"{LM_MESH_ELASTIC[1]}, params and random moments, "
@@ -4919,9 +4924,10 @@ def _lm_mesh_nccl(smi: str) -> None:
 def phase_lm_mesh(dev, smi: str) -> dict:
     """LM training and serving over (data, model) meshes of gloo ranks
     sharing the card: qwen1.5-4b served at 1x2 and 1x4 and trained at 2x2,
-    an elastic checkpoint 2x2 -> 1x2, f32 holds against one rank; returns
-    the K1-K7 launches summed over every rank (zero: the path reaches no
-    kernel, as in the reference)."""
+    an elastic checkpoint 2x2 -> 1x2, f32 holds against one rank (at 1x3
+    with its heads and vocabulary whole on every rank); returns the K1-K7
+    launches summed over every rank (zero: the path reaches no kernel, as
+    in the reference)."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     print(f"[lm_mesh] at the start: host load average "
@@ -4933,7 +4939,7 @@ def phase_lm_mesh(dev, smi: str) -> dict:
     bad, total = [], dict.fromkeys(ops.KERNELS, 0)
     tmp = tempfile.mkdtemp(prefix="lm_mesh_")
     try:
-        for world in (4, 2):
+        for world in (4, 3, 2):
             t0 = time.perf_counter()
             label = _mesh_label(world, "gloo")
             ranks = spawn_ranks(_lm_mesh_rank, world, (world, tmp),
@@ -4957,7 +4963,7 @@ def phase_lm_mesh(dev, smi: str) -> dict:
                         == outputs_1x4)
                 print(f"[lm_mesh] greedy tokens at 1x2 equal those at 1x4: "
                       f"{same} (bf16 matmuls; printed, not held)")
-            else:
+            elif world == 4:
                 saved = ranks[0]["elastic"]["digests"]
                 outputs_1x4 = ranks[0]["serve"]["outputs"]
             print(f"[lm_mesh] {world} ranks: "

@@ -17,7 +17,10 @@ reference's, plus ``--device`` (the CUDA card by default).
 the parameters (drawn leaf by leaf) and of the cache, decodes its
 ``vocab`` part of the logits, and the greedy token is the argmax reduced
 over ``model`` (the first maximum of the whole vocabulary, as one rank
-picks it), gathered over ``data``.  Without a process group the launcher
+picks it), gathered over ``data``.  Any ``DxM`` serves every config: a
+dim that does not divide over ``model`` (heads, ``d_ff``, vocabulary,
+``d_inner``, experts) runs whole on every ``model`` rank, as the
+reference replicates it.  Without a process group the launcher
 spawns its ranks: one a card under NCCL when there are D*M cards, else
 gloo ranks sharing the card (it says which), gloo ranks on the CPU.
 
@@ -90,17 +93,19 @@ def run_rank(main, argv) -> tuple:
         return ("exit", e.code)
 
 
-def greedy_tokens(logits: torch.Tensor, mesh, batch: int) -> np.ndarray:
+def greedy_tokens(logits: torch.Tensor, mesh, batch: int,
+                  vocab: int) -> np.ndarray:
     """The argmax over the whole vocabulary of each row of ``logits``
     (B, V) as numpy, every rank alike.  On a mesh ``logits`` is this
-    rank's block (``steps.logits_sharding``): the argmax is reduced over
-    ``model`` (the first maximum, as one rank's ``argmax``) and the rows
-    gathered over ``data``."""
+    rank's block (``steps.logits_sharding``): where it holds a part of the
+    ``vocab`` the argmax is reduced over ``model`` (the first maximum, as
+    one rank's ``argmax``); the rows are gathered over ``data``."""
     idx = torch.argmax(logits, dim=-1)
     if mesh is None:
         return idx.cpu().numpy()
     sizes = shd.mesh_shape(mesh)
-    g_model = shd.axes_group(mesh, "model") if sizes["model"] > 1 else None
+    g_model = (shd.axes_group(mesh, "model")
+               if logits.shape[-1] < vocab else None)
     if g_model is not None:  # one gather of (max, its vocabulary index)
         lo = shd.axes_index(mesh, "model")[0] * logits.shape[-1]
         val = torch.gather(logits, -1, idx[:, None])[:, 0].double()
@@ -155,7 +160,7 @@ def serve_requests(cfg, params, *, slots: int, requests: int,
             if mesh is not None:
                 toks = shd.local_block(toks, tok_place, mesh)
             logits, cache = step_fn(params, cache, toks, pos)
-            nxt = greedy_tokens(logits[:, 0], mesh, slots)
+            nxt = greedy_tokens(logits[:, 0], mesh, slots, cfg.vocab)
             for s in range(slots):
                 st = slot_state[s]
                 if st is None:

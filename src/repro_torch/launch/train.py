@@ -33,7 +33,9 @@ mesh).  Without a process group the launcher spawns its ranks (NCCL, one
 a card, when there are D*M cards; else gloo ranks sharing the card, which
 it prints) and forwards SIGTERM/SIGINT to them; the ranks agree on the
 step to stop at, and the launcher exits with their code (143).  Only
-rank 0 prints.
+rank 0 prints.  Any ``DxM`` trains every config: a dim that does not
+divide over ``model`` (heads, vocabulary, ``d_ff``, ``d_inner``, experts)
+runs whole on every ``model`` rank, as the reference replicates it.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --smoke \

@@ -16,7 +16,7 @@ onto: the local ``wk``/``wv`` columns when ``n_kv_heads`` divides the
 model degree, else the gathered projection's heads picked per query head;
 ``wo`` is row-parallel and the output leaves through ``MeshContext.exit``.
 Where ``n_heads`` does not divide the model degree
-(``MeshContext.whole_heads``) every ``model`` rank runs every head with
+(``MeshContext.whole``) every ``model`` rank runs every head with
 the weights gathered whole, and its whole output is cut to the rank's
 block of the sequence.
 Decode keeps the cache's placement: with ``kv_heads`` over ``model`` each
@@ -24,7 +24,8 @@ rank decodes its own heads as training does; with the ``head`` fallback
 on ``head_dim`` it follows the reference's ``constrain`` hints: q and the
 new K/V are cut to the cache's block, the scores of a ``head_dim`` block
 are summed over ``model`` (the cache is never gathered), and the heads'
-outputs are gathered for the row-parallel ``wo``.  ``cross_attention``
+outputs are gathered for the row-parallel ``wo`` (or the whole ``wo``
+where its rows do not divide).  ``cross_attention``
 (vlm) attends over vision states that may be float32 under a bf16 model,
 as the reference's launcher feeds them: it computes in the promoted type
 where the reference's mixed operands promote (JAX promotes ``f32 @ bf16``
@@ -79,8 +80,8 @@ def qkv_proj(p, x, cfg: LMConfig, kv_x=None, cross: bool = False):
     dt = cfg.dtype
     spec = attention_spec(cfg, cross=cross)
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    whole = ctx.whole_heads(H)
-    h_lo, h_hi = (0, H) if whole else ctx.part(H, "n_heads")
+    whole = ctx.whole(H)
+    h_lo, h_hi = ctx.part(H)
     m = 1 if whole else ctx.size("model")
     cols = None if whole else 1
     B, S, _ = x.shape
@@ -124,8 +125,10 @@ def _mesh_decode_out(ctx, p, qg, ck, cv, allow, cfg: LMConfig, cross=False):
     """The decode attention of the whole heads' ``qg`` (B, 1, KV, G, Dh)
     against this rank's cache blocks when ``n_kv_heads`` does not divide
     the model degree (the ``head`` fallback, or a cache held whole), as
-    the reference's constraints lay it out; returns this rank's partial
-    sums over ``model`` of the ``wo`` product (B, 1, d)."""
+    the reference's constraints lay it out; returns the ``wo`` product
+    (B, 1, d) in the residual stream's layout: this rank's rows of ``wo``
+    summed over ``model``, or the whole ``wo`` where its rows do not
+    divide."""
     B = qg.shape[0]
     H, Dh = cfg.n_heads, cfg.head_dim
     spec = attention_spec(cfg, cross=cross)
@@ -142,9 +145,9 @@ def _mesh_decode_out(ctx, p, qg, ck, cv, allow, cfg: LMConfig, cross=False):
     if head_split:
         o = all_gather_dim(o.contiguous(), ctx.group("model"), -1)
     o = o.movedim(3, 1).reshape(B, 1, H * Dh).to(cfg.dtype)
-    lo, hi = ctx.part(H * Dh, "the heads' columns")
+    lo, hi = ctx.part(H * Dh)
     wo = ctx.model_part(p["wo"], spec["wo"], 0).to(cfg.dtype)
-    return o[..., lo:hi] @ wo
+    return ctx.exit(o[..., lo:hi] @ wo, ctx.whole(H * Dh))
 
 
 # ------------------------------------------------- chunked online softmax
@@ -234,7 +237,7 @@ def self_attention(
         q, k, v, causal=True, window=w, chunk=cfg.attn_chunk,
         p_bf16=cfg.attn_p_bf16,
     )
-    whole = ctx.whole_heads(cfg.n_heads)
+    whole = ctx.whole(cfg.n_heads)
     out = out.reshape(B, S, -1) @ ctx.model_part(
         p["wo"], attention_spec(cfg)["wo"], None if whole else 0
     ).to(cfg.dtype)
@@ -302,8 +305,8 @@ def decode_self_attention(
         allow = allow & (abs_pos > pos - w)
     qg = (q * (Dh ** -0.5)).reshape(B, 1, KV, -1, Dh).float()
     if not local:
-        return ctx.exit(_mesh_decode_out(ctx, p, qg, cache_k, cache_v, allow,
-                                         cfg)), cache_k, cache_v
+        return _mesh_decode_out(ctx, p, qg, cache_k, cache_v, allow,
+                                cfg), cache_k, cache_v
     s = torch.einsum("bqkgd,blkd->bkgql", qg, cache_k.float())
     s = torch.where(allow, s, torch.tensor(NEG_INF, device=dev))
     prob = torch.softmax(s, dim=-1)
@@ -326,8 +329,7 @@ def decode_cross_attention(p, x, xk, xv, cfg: LMConfig):
         q = _full_cols(ctx, x, p, "wq", None, spec, dt, False)
         qg = (q.reshape(B, 1, -1, Dh) * (Dh ** -0.5)).reshape(
             B, 1, cfg.n_kv_heads, -1, Dh)
-        return ctx.exit(_mesh_decode_out(ctx, p, qg, xk, xv, None, cfg,
-                                         cross=True))
+        return _mesh_decode_out(ctx, p, qg, xk, xv, None, cfg, cross=True)
     q = x @ ctx.model_part(p["wq"], spec["wq"], 1).to(dt)
     qg = (q.reshape(B, 1, -1, Dh) * (Dh ** -0.5)).reshape(
         B, 1, xk.shape[2], -1, Dh)
@@ -354,7 +356,7 @@ def cross_attention(p, x, vision_kv, cfg: LMConfig):
     ct = torch.promote_types(vision_kv.dtype, dt)
     q, k, v = qkv_proj(p, x, cfg, kv_x=vision_kv.to(ct), cross=True)
     out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    whole = ctx.whole_heads(cfg.n_heads)
+    whole = ctx.whole(cfg.n_heads)
     wo = ctx.model_part(p["wo"], attention_spec(cfg, cross=True)["wo"],
                         None if whole else 0)
     out = ctx.exit(out.reshape(B, S, -1) @ wo.to(dt), whole)

@@ -10,8 +10,11 @@ residual stream; the MLP enters with the whole sequence, runs column- then
 row-parallel over ``model`` and leaves through ``MeshContext.exit``; the
 embedding looks up every ``data`` rank's tokens in the rank's columns of
 the table and gathers the rows' columns; ``unembed`` gives this rank's
-``vocab`` part of the logits.  Off a mesh the same code runs on the
-one-device context, whose parts are whole and collectives identities.
+``vocab`` part of the logits.  A ``d_ff`` or a vocabulary that does not
+divide over ``model`` (``MeshContext.whole``) runs whole on every ``model``
+rank, as the reference replicates it: the whole MLP, its output whole; the
+whole logits.  Off a mesh the same code runs on the one-device context,
+whose parts are whole and collectives identities.
 """
 from __future__ import annotations
 
@@ -70,7 +73,8 @@ def _gelu(x):
 def mlp_partial(p, x, cfg: LMConfig, d_ff: Optional[int] = None):
     """The MLP of the whole-sequence ``x`` without ``b_down``; on a mesh
     this rank's partial sums over ``model`` (columns of ``w_gate``/
-    ``w_up``, rows of ``w_down``), which the caller sums (``exit``)."""
+    ``w_up``, rows of ``w_down``), which the caller sums (``exit``), or
+    the whole MLP where ``d_ff`` does not divide (``MeshContext.whole``)."""
     ctx = shd.context()
     dt = cfg.dtype
     spec = mlp_spec(cfg, d_ff)
@@ -101,7 +105,8 @@ def apply_mlp(p, x, cfg: LMConfig, d_ff: Optional[int] = None):
     """The MLP of ``x``; on a mesh ``x`` and the output are the residual
     stream's layout (``d_ff``: the width, ``cfg.d_ff`` unless given)."""
     ctx = shd.context()
-    y = ctx.exit(mlp_partial(p, ctx.enter(x), cfg, d_ff))
+    y = ctx.exit(mlp_partial(p, ctx.enter(x), cfg, d_ff),
+                 ctx.whole(d_ff or cfg.d_ff))
     return mlp_bias(p, y, cfg, d_ff)
 
 
@@ -143,8 +148,8 @@ def embed_tokens(p, tokens, cfg: LMConfig):
 
 def vocab_part(cfg: LMConfig) -> tuple:
     """(lo, hi) of the vocabulary this rank's logits cover (all of it off
-    a mesh)."""
-    return shd.context().part(cfg.vocab, "vocab")
+    a mesh, or where it does not divide over ``model``)."""
+    return shd.context().part(cfg.vocab)
 
 
 def unembed(p, x, cfg: LMConfig):

@@ -33,7 +33,8 @@ runs on this rank's blocks: ``_seq_shard`` cuts the residual stream's
 sequence over ``model`` where it divides (sequence parallelism; decode's
 single token stays whole), each block enters and leaves through the
 mesh context, ``logits_fn`` and ``decode_step`` return this rank's
-``vocab`` part of the logits, the cross-entropy is vocab-parallel (the
+``vocab`` part of the logits (all of them where the vocabulary does not
+divide over ``model``), the cross-entropy is vocab-parallel (the
 max, the sum of exponentials and the target logit reduced over
 ``model``), and ``lm_loss`` is this rank's share of the mean over the
 global batch (the shares of every rank sum to the loss).
@@ -509,8 +510,10 @@ def _xent_chunk(embed, xx, ll, cfg: LMConfig):
     valid = ll >= 0
     # vocab-parallel on a mesh: the logits hold this rank's part, and the
     # max, the sum of exponentials and the target logit are reduced over
-    # model (torch.logsumexp's own formula)
-    g = shd.context().group("model")
+    # model (torch.logsumexp's own formula); a vocabulary that does not
+    # divide is whole on every rank, reduced over nothing
+    ctx = shd.context()
+    g = None if ctx.whole(cfg.vocab) else ctx.group("model")
     lo, hi = vocab_part(cfg)
     m = all_max(logits.amax(dim=-1), g)
     lse = torch.log(psum(torch.exp(logits - m[..., None]).sum(dim=-1), g)) + m

@@ -15,8 +15,13 @@ router is replicated); with ``expert`` over ``model`` each rank
 dispatches to, runs and combines only its own experts (the reference's
 ``constrain(..., require="expert")``), otherwise every rank runs every
 expert on its ``mlp`` columns; the partial outputs leave through
-``MeshContext.exit``.  The capacity groups are the unsharded run's: a
-group that would straddle two ``data`` ranks is refused.
+``MeshContext.exit``.  Where neither ``n_experts`` nor ``expert_d_ff``
+divides over ``model`` (``MeshContext.whole``) every rank runs every
+expert whole and its output leaves whole, as the reference replicates
+both dims.  The capacity groups are the unsharded run's: where one would
+straddle two ``data`` ranks, the block runs on the whole batch gathered
+over ``data`` (every ``data`` rank alike) and keeps its own rows, as the
+reference's groups span the global batch.
 
 Returns a Switch-style load-balancing auxiliary loss beside the outputs.
 """
@@ -31,6 +36,7 @@ from repro_torch.models.config import LMConfig
 from repro_torch.models.layers import mlp_bias, mlp_partial, mlp_spec
 from repro_torch.nn import ParamSpec
 from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.collectives import gather_dim
 
 
 def moe_spec(cfg: LMConfig):
@@ -74,21 +80,16 @@ def route(p, xg, cfg: LMConfig):
     return probs, weights, idx
 
 
-def _group_size(ctx, B: int, S: int, g: int) -> int:
-    """The unsharded run's group size for this rank's ``B`` rows (all the
-    tokens when ``g`` does not divide them: the smoke shapes' fallback), or
-    a refusal when one of its groups would straddle two ``data`` ranks."""
+def _group_size(ctx, B: int, S: int, g: int) -> tuple:
+    """(the unsharded run's group size, whether one of its groups
+    straddles two ``data`` ranks' blocks of ``B`` rows): the size is all
+    the global batch's tokens when ``g`` does not divide them (the smoke
+    shapes' fallback)."""
     shards = ctx.size("data") if ctx.batch_sharded else 1
     T_all, T = B * shards * S, B * S
     if T_all % g:
         g = T_all  # the unsharded run's degenerate fallback
-    if T % g:
-        raise ValueError(
-            f"moe capacity group of {g} tokens straddles the {shards} data "
-            f"ranks' blocks of {T} tokens; the groups must be the unsharded "
-            "run's (pick a batch whose rows a data rank holds whole groups "
-            "of)")
-    return g
+    return g, T % g != 0
 
 
 def _expert_weights(ctx, p, cfg: LMConfig):
@@ -111,10 +112,14 @@ def apply_moe(p, x, cfg: LMConfig, group_size: int = 0):
     aux loss is this rank's share."""
     ctx = shd.context()
     x = ctx.enter(x)
-    B, S, d = x.shape
+    rows, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     dt = cfg.dtype
-    g = _group_size(ctx, B, S, group_size or cfg.moe_group or min(S, 4096))
+    g, straddles = _group_size(ctx, rows, S,
+                               group_size or cfg.moe_group or min(S, 4096))
+    if straddles:  # the global batch, every data rank alike
+        x = gather_dim(x, ctx.group("data"), 0)
+    B = x.shape[0]
     T = B * S
     xg = x.reshape(T // g, g, d)  # (G, g, d)
     probs, weights, idx = route(p, xg, cfg)
@@ -138,6 +143,7 @@ def apply_moe(p, x, cfg: LMConfig, group_size: int = 0):
     dispatch = shd.constrain(dispatch, ax, require="expert")
     combine = shd.constrain(combine, ax, require="expert")
     wg, wu, wd = _expert_weights(ctx, p, cfg)
+    whole = ctx.whole(E) and ctx.whole(cfg.expert_d_ff or cfg.d_ff)
     xd = torch.einsum("gtec,gtd->gecd", dispatch, xg.to(dt))
     h = torch.einsum("gecd,edf->gecf", xd, wg.to(dt))
     u = torch.einsum("gecd,edf->gecf", xd, wu.to(dt))
@@ -145,10 +151,17 @@ def apply_moe(p, x, cfg: LMConfig, group_size: int = 0):
     out = torch.einsum("gtec,gecd->gtd", combine, eo).reshape(B, S, d)
     if cfg.dense_residual_ff:
         ff = cfg.dense_residual_ff
-        out = out + mlp_partial(p["dense"], x, cfg, ff)
-        out = mlp_bias(p["dense"], ctx.exit(out), cfg, ff)
+        dense = mlp_partial(p["dense"], x, cfg, ff)
+        if ctx.whole(ff) == whole:  # one sum over model for both
+            out = ctx.exit(out + dense, whole)
+        else:
+            out = ctx.exit(out, whole) + ctx.exit(dense, ctx.whole(ff))
+        out = mlp_bias(p["dense"], out, cfg, ff)
     else:
-        out = ctx.exit(out)
+        out = ctx.exit(out, whole)
+    if straddles:  # this rank's rows
+        i = ctx.index("data")
+        out = out[i * rows:(i + 1) * rows]
 
     # Switch-style load-balancing auxiliary loss; on a mesh this rank's
     # share: its groups of the global batch, over every rank that routes

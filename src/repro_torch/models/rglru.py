@@ -20,9 +20,10 @@ channels (``mlp``) and the gate heads (``heads``) are split over
 ``model``, a rank's heads being exactly its channels' blocks; the block
 enters with the whole sequence and leaves through the row-parallel
 ``w_out``.  Where ``n_heads`` does not divide the model degree
-(``MeshContext.whole_heads``) every ``model`` rank runs the whole block
-on the gathered weights and states and keeps its channels of the new
-states.
+(``MeshContext.whole``; so wherever ``lru_width``, a multiple of it, does
+not) every ``model`` rank runs the whole block on the gathered weights and
+states, its output whole, and keeps its channels of the new states where
+``lru_width`` divides (whole states where it does not).
 """
 from __future__ import annotations
 
@@ -118,12 +119,12 @@ def apply_rglru_block(
     channels.
     """
     ctx = shd.context()
-    whole = ctx.whole_heads(cfg.n_heads)
-    h_lo, h_hi = (0, cfg.n_heads) if whole else ctx.part(cfg.n_heads,
-                                                         "n_heads")
+    # lru_width = n_heads * block: whole heads cover a whole lru_width too
+    whole = ctx.whole(cfg.n_heads)
+    h_lo, h_hi = ctx.part(cfg.n_heads)
     spec = rglru_spec(cfg)
-    # whole heads: the states' channels are gathered, and the new states
-    # cut back to this rank's channels
+    # whole heads over a rank's channels of the states: they are gathered,
+    # and the new states cut back to this rank's channels
     cut = whole and conv_state is not None and \
         conv_state.shape[-1] != cfg.lru_width
     if cut:
@@ -154,6 +155,6 @@ def apply_rglru_block(
     y, h = _lru_scan(a_t, gated, h0, cfg.scan_chunk)
     out = (y.to(dt) * x2) @ w("w_out", 0).to(dt)
     if cut:
-        lo, hi = ctx.part(cfg.lru_width, "lru_width")
+        lo, hi = ctx.part(cfg.lru_width)
         new_conv, h = new_conv[..., lo:hi], h[..., lo:hi]
     return ctx.exit(out, whole), (new_conv, h)

@@ -16,7 +16,10 @@ sequence, gathers its block of ``in_proj``'s outputs over ``model`` and
 takes its channels of both halves, runs the conv, the scan and ``D`` on
 them, sums ``x_proj``'s partial products over ``model`` before ``dt``,
 ``B`` and ``C``, and leaves through the row-parallel ``out_proj``.
-Decode states are the rank's channels.  Off a mesh the same code runs on
+Decode states are the rank's channels.  A ``d_inner`` that does not divide
+over ``model`` (``MeshContext.whole``) runs whole on every ``model`` rank,
+as the reference replicates it: every weight and state whole, no sum
+over ``model``, the output whole.  Off a mesh the same code runs on
 the one-device context, whose parts are whole and collectives identities.
 """
 from __future__ import annotations
@@ -123,7 +126,8 @@ def mamba_scan_inputs(p, x, cfg: LMConfig,
     (di, st); z is the gate half of the input projection.  On a mesh ``x``
     is the whole sequence and every ``di`` this rank's channels: its block
     of ``in_proj``'s columns is gathered over ``model`` as activations, not
-    weights, and ``x_proj``'s partial products are summed over ``model``.
+    weights, and ``x_proj``'s partial products are summed over ``model``;
+    all of ``di`` where it does not divide (``MeshContext.whole``).
     """
     di, st, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
     dt_ = cfg.dtype
@@ -133,13 +137,19 @@ def mamba_scan_inputs(p, x, cfg: LMConfig,
     def w(name, dim=None):
         return ctx.model_part(p[name], spec[name], dim)
 
-    lo, hi = ctx.part(di, "d_inner")
-    xz = gather_dim(x @ w("in_proj", 1).to(dt_), ctx.group("model"), -1)
+    whole = ctx.whole(di)
+    lo, hi = ctx.part(di)
+    cols = ctx.model_sharded(spec["in_proj"], 1)
+    xz = x @ w("in_proj", 1 if cols else None).to(dt_)
+    if cols:  # this rank's block of the columns, gathered as activations
+        xz = gather_dim(xz, ctx.group("model"), -1)
     x_in, z = xz[..., lo:hi], xz[..., di + lo:di + hi]
     y_conv, new_conv = _causal_conv(x_in, w("conv_w", 1), w("conv_b", 0),
                                     state=conv_state)
     xc = F.silu(y_conv).float()
-    proj = ctx.psum_model(xc.to(dt_) @ w("x_proj", 0).to(dt_))
+    proj = xc.to(dt_) @ w("x_proj", 0).to(dt_)
+    if not whole:
+        proj = ctx.psum_model(proj)
     dt_low = proj[..., :dr].float()
     B_ssm = proj[..., dr:dr + st].float()
     C_ssm = proj[..., dr + st:].float()
@@ -174,4 +184,4 @@ def apply_mamba(
     y = y + ctx.model_part(p["D"], spec["D"], 0) * xc
     y = y.to(cfg.dtype) * F.silu(z)
     out = y @ ctx.model_part(p["out_proj"], spec["out_proj"], 0).to(cfg.dtype)
-    return ctx.exit(out), (new_conv, h)
+    return ctx.exit(out, ctx.whole(cfg.d_inner)), (new_conv, h)

@@ -343,17 +343,15 @@ def axes_index(mesh, axes) -> tuple:
 
 def local_block(t, spec: Sequence, mesh) -> torch.Tensor:
     """This rank's block of the global tensor ``t`` under ``spec``: every
-    sharded dim cut to the rank's slice (a view)."""
+    sharded dim cut to the rank's slice (a view).  A dim that does not
+    divide over its axes stays whole, as ``resolve_pspec`` replicates it."""
     t = torch.as_tensor(t)
     for dim, axes in enumerate(spec):
         if axes is None:
             continue
         idx, count = axes_index(mesh, axes)
         if t.shape[dim] % count:
-            raise ValueError(
-                f"dim {dim} of {tuple(t.shape)} does not divide over "
-                f"{axes!r} ({count} ranks)"
-            )
+            continue
         size = t.shape[dim] // count
         t = t.narrow(dim, idx * size, size)
     return t
@@ -456,11 +454,13 @@ def abstract_like(specs):
 
 
 def block_shape(shape, spec, mesh) -> tuple:
-    """The shape of this rank's block of a ``shape`` leaf under ``spec``."""
+    """The shape of this rank's block of a ``shape`` leaf under ``spec``
+    (``local_block``'s: a dim that does not divide stays whole)."""
     out = list(shape)
     for dim, axes in enumerate(spec):
-        if axes is not None:
-            out[dim] //= group_count(mesh, axes)
+        count = group_count(mesh, axes)
+        if axes is not None and out[dim] % count == 0:
+            out[dim] //= count
     return tuple(out)
 
 
@@ -556,14 +556,21 @@ class MeshContext:
             return (None,) * len(axes)
         return operand_pspec(pspec.shape, axes, self.mesh, self.rules)
 
-    def part(self, n: int, what: str = "a dim") -> tuple:
+    def whole(self, n: int) -> bool:
+        """True where ``n`` does not divide over ``model``.  A block whose
+        model-sharded dim (heads, ``mlp`` columns, vocabulary, ``d_inner``,
+        experts) is ``n`` then runs whole on every ``model`` rank: its
+        weights whole (``resolve_pspec`` replicates the dim, ``model_part``
+        gathers any other), its output whole (``exit(y, whole=True)``), as
+        the reference replicates a dim that does not divide."""
+        return n % self.size("model") != 0
+
+    def part(self, n: int) -> tuple:
         """(lo, hi): this rank's contiguous part of ``n`` over ``model``;
-        raises when ``n`` does not divide."""
-        m = self.size("model")
-        if n % m:
-            raise ValueError(f"{what} of {n} does not divide over the "
-                             f"{m} ranks of the mesh's 'model' axis")
-        size = n // m
+        all of it where ``n`` does not divide (``whole``)."""
+        if self.whole(n):
+            return 0, n
+        size = n // self.size("model")
         lo = self.index("model") * size
         return lo, lo + size
 
@@ -581,7 +588,7 @@ class MeshContext:
                 continue
             t = gather_dim(t, axes_group(self.mesh, axes), d)
         if dim is not None and spec[dim] != "model":
-            lo, hi = self.part(t.shape[dim], f"dim {dim} of {pspec.shape}")
+            lo, hi = self.part(t.shape[dim])
             if hi - lo < t.shape[dim]:
                 t = t.narrow(dim, lo, hi - lo)
         return t
@@ -596,13 +603,6 @@ class MeshContext:
         return gather_dim(x, self.group("model"), 1) if self.seq_sharded \
             else x
 
-    def whole_heads(self, n_heads: int) -> bool:
-        """True where ``n_heads`` does not divide over ``model``: the block
-        then runs every head on every ``model`` rank, its weights gathered
-        whole and its output whole (``exit(y, whole=True)``), as the
-        reference replicates a dim that does not divide."""
-        return n_heads % self.size("model") != 0
-
     def exit(self, y, whole: bool = False):
         """A block's partial sums over ``model`` (whole sequence) -> the
         residual stream: reduce-scattered over the sequence, or summed.
@@ -616,7 +616,7 @@ class MeshContext:
         if whole:
             if not self.seq_sharded:
                 return y
-            lo, hi = self.part(y.shape[1], "the sequence")
+            lo, hi = self.part(y.shape[1])
             return y[:, lo:hi]
         dt = y.dtype
         y = y.float()  # partial sums add in f32

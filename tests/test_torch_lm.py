@@ -522,18 +522,16 @@ def test_serve_cli_on_the_cpu_and_its_refusals(capsys):
                      "4", "--device", "cpu"])
     assert n == 12
     assert "[serve] 3/3 requests, 12 tokens" in capsys.readouterr().out
-    # meshes beyond 1x1 serve (test_torch_lm_mesh_ref.py); refused are a
-    # malformed --mesh and one whose model degree splits neither the heads
-    # (run whole on every rank: test_torch_lm_whole_heads.py) nor their
-    # columns
+    # meshes beyond 1x1 serve (test_torch_lm_mesh_ref.py); refused is a
+    # malformed --mesh; a model degree that splits neither the heads nor
+    # their columns nor the vocabulary serves them whole on every rank
+    # (test_torch_lm_replicate.py)
     with pytest.raises(ValueError, match="DATAxMODEL"):
         tserve.main(["--arch", "qwen1.5-4b", "--smoke", "--mesh", "2by1",
                      "--device", "cpu"])
-    with pytest.raises(RuntimeError, match="the heads' columns of 64 does "
-                       "not divide over the 3 ranks"):
-        tserve.main(["--arch", "qwen1.5-4b", "--smoke", "--mesh", "1x3",
-                     "--slots", "3", "--requests", "1", "--prompt-len", "2",
-                     "--max-new", "1", "--device", "cpu"])
+    args = ["--arch", "qwen1.5-4b", "--smoke", "--slots", "3", "--requests",
+            "1", "--prompt-len", "2", "--max-new", "1", "--device", "cpu"]
+    assert tserve.main(args + ["--mesh", "1x3"]) == tserve.main(args) == 1
     capsys.readouterr()
     n = tserve.main(["--arch", "mixtral-8x7b", "--smoke", "--slots", "2",
                      "--requests", "3", "--prompt-len", "3", "--max-new",

@@ -608,13 +608,15 @@ def test_mesh_refusals():
     _, tc = _cfgs("recurrentgemma-9b")  # lru 64 splits over 8, 4 heads not
     # no refusal: every model rank runs the whole block (held against one
     # rank by test_torch_lm_whole_heads.py)
-    assert shd.MeshContext(_FakeMesh(1, 8)).whole_heads(tc.n_heads)
-    assert not shd.MeshContext(_FakeMesh(1, 4)).whole_heads(tc.n_heads)
+    assert shd.MeshContext(_FakeMesh(1, 8)).whole(tc.n_heads)
+    assert not shd.MeshContext(_FakeMesh(1, 4)).whole(tc.n_heads)
     ctx = shd.MeshContext(_FakeMesh(2, 1))
-    with pytest.raises(ValueError, match="straddles"):
-        tmoe._group_size(ctx, 1, 8, 16)  # a 16-token group over 2 ranks
-    assert tmoe._group_size(ctx, 2, 8, 8) == 8
-    with pytest.raises(ValueError, match="does not divide"):
-        shd.MeshContext(_FakeMesh(1, 3)).part(4, "n_heads")
+    # a 16-token group over 2 ranks: no refusal, the block runs on the
+    # batch gathered over data (held against one rank by
+    # test_torch_lm_replicate.py)
+    assert tmoe._group_size(ctx, 1, 8, 16) == (16, True)
+    assert tmoe._group_size(ctx, 2, 8, 8) == (8, False)
+    # no refusal: a dim that does not divide is whole on every model rank
+    assert shd.MeshContext(_FakeMesh(1, 3)).part(4) == (0, 4)
     with pytest.raises(ValueError, match="DATAxMODEL"):
         tserve.parse_mesh("2by2")

@@ -4,7 +4,7 @@ ranks against the port's own one-rank run, on the CPU.
 The production mesh has 16 ``model`` ranks; qwen1.5-4b has 20 heads,
 qwen2.5-14b 40, arctic-480b 56, musicgen-medium 24 and every smoke config
 4.  Where the heads do not divide, every ``model`` rank runs every head of
-the block (``MeshContext.whole_heads``): its weights gathered whole, its
+the block (``MeshContext.whole``): its weights gathered whole, its
 whole output cut to the rank's block of the sequence, an RG-LRU's decode
 states gathered and cut back to the rank's channels; the reference
 replicates such a dim.  Three configs at ``(1, 2)``, one spawn of two
@@ -103,9 +103,9 @@ def test_the_configs_take_the_fallback():
 
     ctx = shd.MeshContext(Mesh())
     for arch, kw in CONFIGS.values():
-        assert ctx.whole_heads(kw["n_heads"])
-    assert not ctx.whole_heads(4)
-    assert not shd.MeshContext().whole_heads(3)  # one device
+        assert ctx.whole(kw["n_heads"])
+    assert not ctx.whole(4)
+    assert not shd.MeshContext().whole(3)  # one device
 
 
 @pytest.mark.parametrize("name", CONFIGS)

@@ -30,6 +30,18 @@ script exits non-zero without the final line:
    Function (_PhaseTFApply, _FusedHop, _Readout, _PhaseApply) at
    32x200x200 against autograd through the plain versions on the card,
    to the same tolerance.
+   physics — the paper's physics on the card (``diffraction.propagate``,
+   the one-shot API): at donn-mnist-5l's grid (n 200, 36 um, 532 nm,
+   z 0.30 m) and donn-xl-500's (n 500), PHYSICS_BATCH seeded fields
+   through RS and Fresnel with and without the band limit, padded RS and
+   Fraunhofer, each within SLICE_RTOL of the max of its CPU copy; then
+   tests/test_diffraction.py's identities at the same grids and its
+   tolerances (unitarity, the band limit only removing energy, two hops
+   equal one, forward/backward, superposition, a Gaussian's waist
+   against theory, Fresnel against RS, a slit's sinc far field); then
+   donn-mnist-5l's plan at zero phases and gamma 1 through K1 (counted:
+   K1 2L, K2 once) against depth + 1 chained propagate calls, and
+   ``ops.fused_spectral_hop`` against ``fused_spectral_hop_ref``.
 4. slice   — builds ``donn-mnist-5l`` (n=200, depth 5, qat 256 levels,
    use_pallas) on the card from a seeded generator, freezes it with f32,
    bf16 and int8 planes (and f32 with the rfft first hop), serves 32
@@ -238,11 +250,12 @@ the timed shape B 8, S 2048, D 8192, N 16 both ways; each case repeats
 to the bit and its batch row 1 alone equals the row inside its batch.
 
 Then one JSON line lists every kernel with its launches on the main path
-(DONN serving + training, the families, the design flow, LM serving,
-persistence, the mesh's ranks, LM training, the dry-run, the LM families,
-the LM mesh's ranks; the last six also under ``persistence_launches``,
-``mesh_launches``, ``lm_train_launches``, ``dryrun_launches``,
-``lm_families_launches`` and ``lm_mesh_launches``)
+(the physics phase's plan, DONN serving + training, the families, the
+design flow, LM serving, persistence, the mesh's ranks, LM training, the
+dry-run, the LM families, the LM mesh's ranks; the physics plan's also
+under ``physics_launches`` and the last six under
+``persistence_launches``, ``mesh_launches``, ``lm_train_launches``,
+``dryrun_launches``, ``lm_families_launches`` and ``lm_mesh_launches``)
 and in the LM holds apart, its launches per training step on each engine,
 per family, per design part and per LM window, error and times, and the
 last line is the device record.
@@ -285,10 +298,12 @@ from repro_torch.checkpoint import save as ckpt_save  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.donn import HYBRID_SLM_PRINTED  # noqa: E402
 from repro_torch.core import codesign, dse, dsl  # noqa: E402
+from repro_torch.core import diffraction as df  # noqa: E402
 from repro_torch.core.config import DONNConfig  # noqa: E402
 from repro_torch.core.models import (  # noqa: E402
     build_model, cached_model, emulate_batch,
 )
+from repro_torch.core.propagation import plan_from_config  # noqa: E402
 from repro_torch.core.regularization import calibrate_gamma  # noqa: E402
 from repro_torch.core.train_utils import (  # noqa: E402
     bce_segmentation_loss, evaluate_classifier, loss_and_grads,
@@ -354,6 +369,9 @@ ROPE_F32_RTOL = 1e-6  # K6 in f32: one rounding apart from the plain version
 # (|x1 c| + |x2 s|): the plain version rounds each bf16 product and the
 # result, the kernel rounds once
 SLICE_RTOL = 1e-4  # logits on the card vs the CPU copy (cuFFT vs pocketfft)
+PHYSICS_ARCHS = ("donn-mnist-5l", "donn-xl-500")  # n 200 and n 500 grids
+PHYSICS_BATCH = 32  # seeded fields a one-shot propagate call
+PHYSICS_BL_Z = 2.0  # m: the band limit cuts both grids' spectra there
 WINDOW_S = 1.0  # seconds of closed-loop serving/training per row, repeat
 REPEATS = 2
 PROFILE_BATCHES = 100
@@ -835,6 +853,172 @@ def phase_kernels(dev) -> dict:
                   f"{r['sfu_bound_ms'] * 1e3:.2f} us, the bound of this "
                   f"design, {r['sfu_bound_ms'] / r['ms']:.1%} of it")
     return rows
+
+
+def _hold_close(what: str, got, want, tol: float) -> None:
+    """The reference's assert_allclose(rtol=tol, atol=tol), elementwise."""
+    got, want = got.cpu(), want.cpu()
+    excess = ((got - want).abs() - tol * want.abs()).max().item()
+    print(f"[physics] {what}: max(|a-b| - {tol:g}|b|) {excess:.3e} "
+          f"(tol {tol:g})")
+    if not excess <= tol:
+        raise AssertionError(f"physics/{what}: {excess:.3e} > {tol:g}")
+
+
+def _energies(u) -> torch.Tensor:
+    return df.intensity(u).double().sum(dim=(-2, -1)).cpu()
+
+
+def _physics_card_vs_cpu(grid, z: float, wl: float, dev) -> None:
+    """The one-shot propagate on the card against its CPU copy, every
+    method, with and without the band limit, and padded RS."""
+    gen = torch.Generator().manual_seed(grid.n)
+    u = _cfield((PHYSICS_BATCH, grid.n, grid.n), gen, "cpu")
+    u_dev = u.to(dev)
+    for method, band_limit, pad in ((df.RS, True, False),
+                                    (df.RS, False, False),
+                                    (df.FRESNEL, True, False),
+                                    (df.FRESNEL, False, False),
+                                    (df.RS, True, True),
+                                    (df.FRAUNHOFER, True, False)):
+        got = df.propagate(u_dev, grid, z, wl, method, band_limit, pad)
+        want = df.propagate(u, grid, z, wl, method, band_limit, pad)
+        _hold_out(f"n {grid.n} {method} band_limit {band_limit} pad {pad}",
+                  got.cpu().numpy(), want.numpy(), False, tag="physics")
+
+
+def _physics_identities(grid, z: float, wl: float, dev) -> None:
+    """tests/test_diffraction.py's identities on the card at the config's
+    grid, with the reference test's tolerances."""
+    n = grid.n
+    gen = torch.Generator().manual_seed(7 * n)
+    u = _cfield((PHYSICS_BATCH, n, n), gen, dev)
+    e0 = _energies(u)
+    for method in (df.RS, df.FRESNEL):
+        e = _energies(df.propagate(u, grid, z, wl, method, band_limit=False))
+        rel = ((e - e0).abs() / e0).max().item()
+        print(f"[physics] n {n} {method} unitary: max rel energy change "
+              f"{rel:.3e} (tol 1e-4)")
+        if not rel <= 1e-4:
+            raise AssertionError(f"physics/n {n} {method} not unitary")
+    # at the config's z the band limit passes the whole grid; at
+    # PHYSICS_BL_Z it cuts the outer frequencies
+    for zb in (z, PHYSICS_BL_Z):
+        kept = _energies(df.propagate(u, grid, zb, wl, df.RS,
+                                      band_limit=True)) / e0
+        gain = kept.max().item() - 1.0
+        print(f"[physics] n {n} band limit at z {zb} m: kept energy "
+              f"{kept.min().item():.6f}..{kept.max().item():.6f}, max gain "
+              f"{gain:.3e} (tol 1e-5)")
+        if not gain <= 1e-5:
+            raise AssertionError(f"physics/n {n}: the band limit added "
+                                 "energy")
+    z1, z2 = 0.4 * z, 0.6 * z
+    for method in (df.RS, df.FRESNEL):
+        two = df.propagate(df.propagate(u, grid, z1, wl, method, False),
+                           grid, z2, wl, method, False)
+        _hold_close(f"n {n} {method} two hops = one", two,
+                    df.propagate(u, grid, z, wl, method, False), 2e-3)
+    back = df.propagate(df.propagate(u, grid, z, wl, df.RS, False), grid,
+                        -z, wl, df.RS, False)
+    _hold_close(f"n {n} rs forward/backward", back, u, 2e-3)
+    v = _cfield((PHYSICS_BATCH, n, n), gen, dev)
+    for a, b in ((1.5, -0.25), (-2.0, 0.75)):
+        p = lambda f: df.propagate(f, grid, z, wl)  # noqa: E731
+        _hold_close(f"n {n} superposition a {a:+g} b {b:+g}",
+                    p(a * u + b * v), a * p(u) + b * p(v), 1e-3)
+
+    # a Gaussian of waist extent/16: w(z) at 1.5 Rayleigh ranges, and
+    # Fresnel against RS at the config's distance
+    c = torch.from_numpy(grid.coords())
+    xx, yy = torch.meshgrid(c, c, indexing="ij")
+    w0 = grid.extent / 16
+    g0 = torch.exp(-(xx**2 + yy**2) / w0**2).to(torch.complex64).to(dev)
+    zr = math.pi * w0**2 / wl
+    inten = df.intensity(df.propagate(g0, grid, 1.5 * zr, wl, df.RS,
+                                      band_limit=False)).double().cpu()
+    w_meas = 2.0 * math.sqrt(((inten * xx**2).sum() / inten.sum()).item())
+    w_theory = w0 * math.sqrt(1 + 1.5**2)
+    off = abs(w_meas - w_theory) / w_theory
+    print(f"[physics] n {n} Gaussian w0 {w0 * 1e6:.1f} um at z "
+          f"{1.5 * zr:.3f} m: w {w_meas * 1e6:.2f} um vs theory "
+          f"{w_theory * 1e6:.2f} um, {off:.3e} off (tol 0.05)")
+    if not off < 0.05:
+        raise AssertionError(f"physics/n {n}: Gaussian waist off theory")
+    i_rs, i_fr = (df.intensity(df.propagate(g0, grid, z, wl, m)).cpu()
+                  .double().ravel() for m in (df.RS, df.FRESNEL))
+    corr = torch.corrcoef(torch.stack([i_rs, i_fr]))[0, 1].item()
+    print(f"[physics] n {n} Fresnel vs RS at z {z} m: correlation "
+          f"{corr:.6f} (> 0.999)")
+    if not corr > 0.999:
+        raise AssertionError(f"physics/n {n}: Fresnel far from RS")
+
+    # a 20-pixel slit's far field: a sinc, its first zero on a sample
+    slit = torch.zeros((n, n), dtype=torch.complex64)
+    slit[:, n // 2 - 10:n // 2 + 10] = 1.0
+    zf = 2.0
+    row = df.intensity(df.propagate(slit.to(dev), grid, zf, wl,
+                                    df.FRAUNHOFER)).cpu()[n // 2]
+    x = np.fft.fftshift(np.fft.fftfreq(n, d=grid.pixel_size)) * wl * zf
+    iz = int(np.argmin(np.abs(x - wl * zf / (20 * grid.pixel_size))))
+    ratio = (row[iz] / row[n // 2]).item()
+    print(f"[physics] n {n} slit sinc: peak at {int(row.argmax())} "
+          f"(centre {n // 2}), first zero / peak {ratio:.3e} (< 0.01)")
+    if int(row.argmax()) != n // 2 or not ratio < 0.01:
+        raise AssertionError(f"physics/n {n}: slit far field is no sinc")
+
+
+def phase_physics(dev) -> dict:
+    """The paper's physics on the card: the one-shot propagate against
+    its CPU copy and the physics identities at donn-mnist-5l's (n 200)
+    and donn-xl-500's (n 500) grids, then donn-mnist-5l's plan through K1
+    against chained propagate calls.  Returns that plan run's launches."""
+    t0 = time.perf_counter()
+    for arch in PHYSICS_ARCHS:
+        cfg = get_config(arch)
+        grid = df.Grid(cfg.n, cfg.pixel_size)
+        _physics_card_vs_cpu(grid, cfg.distance, cfg.wavelength, dev)
+        _physics_identities(grid, cfg.distance, cfg.wavelength, dev)
+
+    # zero phases at gamma 1: every modulation is 1, so the stack is depth+1
+    # free-space hops; the scan engine runs them through K1 (and K2 last)
+    cfg = dataclasses.replace(get_config("donn-mnist-5l"), use_pallas=True)
+    plan = plan_from_config(cfg, 1.0)
+    grid = df.Grid(cfg.n, cfg.pixel_size)
+    u = _cfield((PHYSICS_BATCH, cfg.n, cfg.n),
+                torch.Generator().manual_seed(25), dev)
+    phis = torch.zeros((cfg.depth, cfg.n, cfg.n), device=dev)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        out = plan.propagate_final(plan.forward(phis, u))
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        want = u
+        for z in cfg.gap_distances():
+            want = df.propagate(want, grid, z, cfg.wavelength,
+                                cfg.approximation, cfg.band_limit, cfg.pad)
+    _hold_out(f"{cfg.name} plan through K1", out.cpu().numpy(),
+              want.cpu().numpy(), False, tag="physics",
+              against=f"{cfg.depth + 1} chained propagate calls")
+    owed = {**dict.fromkeys(ops.KERNELS, 0),
+            "conj_phase_scale": 2 * cfg.depth, "phase_tf_apply": 1}
+    print(f"[physics] plan launches {launches} (owed {owed})")
+    if launches != owed:
+        raise AssertionError(f"physics: plan launches {launches} != {owed}")
+
+    gen = torch.Generator().manual_seed(26)
+    planes = [(torch.rand((cfg.n, cfg.n), generator=gen) * 4 - 2) * math.pi,
+              torch.rand((cfg.n, cfg.n), generator=gen),
+              (torch.rand((cfg.n, cfg.n), generator=gen) * 4 - 2) * math.pi,
+              torch.rand((cfg.n, cfg.n), generator=gen)]
+    planes = [p.to(dev) for p in planes]
+    with torch.no_grad():
+        _compare("fused_spectral_hop", f"{PHYSICS_BATCH}x{cfg.n}x{cfg.n} vs "
+                 "fused_spectral_hop_ref", ops.fused_spectral_hop(u, *planes),
+                 ops.fused_spectral_hop_ref(u, *planes))
+    torch.cuda.synchronize()
+    print(f"[physics] phase {time.perf_counter() - t0:.1f}s")
+    return launches
 
 
 def _hold_readout_batch_independence(dev, gen, masks) -> None:
@@ -5001,6 +5185,7 @@ def main(argv=None) -> int:
     phase_build()
     phase_facts(dev)
     rows = phase_kernels(dev)
+    physics = phase_physics(dev)
     phase_backward(dev)
     launches = phase_slice(dev, smi, args.profile)
     train = phase_train(dev, smi, args.profile)
@@ -5022,12 +5207,14 @@ def main(argv=None) -> int:
         row = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            # the main path: DONN serving and training, the advanced
-            # families, the design flow, LM serving, persistence and the
-            # fleet, the mesh's ranks, LM training, the dry-run, the LM
-            # families and the LM mesh's ranks (none); the LM holds
+            # the main path: the physics phase's plan, DONN serving and
+            # training, the advanced families, the design flow, LM
+            # serving, persistence and the fleet, the mesh's ranks, LM
+            # training, the dry-run, the LM families and the LM mesh's
+            # ranks (none); the LM holds
             # (K6 on q/k, K7 on the mixer tensors) apart
-            "launches": (launches[name] + train["counted"][name]
+            "launches": (physics[name] + launches[name]
+                         + train["counted"][name]
                          + sum(f[name] for f in families.values())
                          + sum(d[name] for d in design.values())
                          + sum(v for w, v in lm_launches.items()
@@ -5038,6 +5225,7 @@ def main(argv=None) -> int:
                          + lm_meshes[name]),
             "hold_launches": sum(v for w, v in lm_launches.items()
                                  if w.startswith("lm_hold")),
+            "physics_launches": physics[name],
             "serve_launches": launches[name],
             "train_launches": {eng: c[name]
                                for eng, c in train["per_step"].items()},

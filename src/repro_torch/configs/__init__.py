@@ -7,6 +7,7 @@ package; ``repro_torch.models.config.get_config`` reads it.
 """
 from repro_torch.configs import (
     arctic_480b,
+    donn,
     falcon_mamba_7b,
     glm4_9b,
     granite_8b,
@@ -35,4 +36,5 @@ DONN_ARCHS = (
     "donn-xl-500",
 )
 
-__all__ = ["CONFIGS", "DONN_ARCHS", "LM_ARCHS", "LM_CONFIGS", "get_config"]
+__all__ = ["CONFIGS", "DONN_ARCHS", "LM_ARCHS", "LM_CONFIGS", "donn",
+           "get_config"]

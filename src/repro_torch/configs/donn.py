@@ -1,8 +1,9 @@
 """The paper's own DONN architectures as registered configs.
 
 The same six ``(full, smoke)`` pairs as ``repro.configs.donn``, in a plain
-dict instead of the JAX package's registry (which lives in
-``repro.models``):
+dict (the LM registry, ``repro_torch.models.config``, stays the LM
+architectures'), each also returned by the reference's named function
+(``donn3`` ... ``donn_xl``, the same objects):
 
 - donn-mnist-3l : the physically-prototyped 3-layer system (paper §5.1):
                   200x200, 36um pixels, 532nm, z=0.28m (11 in).
@@ -17,8 +18,9 @@ Beside them, ``HYBRID_SLM_PRINTED`` is the repo's one heterogeneous
 stack: ``examples/advanced_donns.py``'s "hybrid-slm-printed" (three
 64-px, 36 um, 256-level SLM layers 0.10 m apart feeding two 48-px, 48 um,
 4-level printed layers 0.05 m apart, 0.06 m to the detector), spelled as
-the ``DONNConfig`` the reference's DSL assembles for it (the port has no
-DSL yet).  Its plan is two fused segments and one resample stitch.
+the ``DONNConfig`` that the DSL (``repro_torch.core.dsl``, as the
+reference's) assembles for the example's ``dsl.models.sequential`` stack.
+Its plan is two fused segments and one resample stitch.
 """
 from repro_torch.core.config import DONNConfig, LayerSpec
 
@@ -88,6 +90,30 @@ CONFIGS = {
         ),
     ),
 }
+
+
+def donn3() -> tuple:
+    return CONFIGS["donn-mnist-3l"]
+
+
+def donn5() -> tuple:
+    return CONFIGS["donn-mnist-5l"]
+
+
+def donn_chip() -> tuple:
+    return CONFIGS["donn-chip"]
+
+
+def donn_rgb() -> tuple:
+    return CONFIGS["donn-rgb"]
+
+
+def donn_seg() -> tuple:
+    return CONFIGS["donn-seg"]
+
+
+def donn_xl() -> tuple:
+    return CONFIGS["donn-xl-500"]
 
 
 def get_config(name: str, smoke: bool = False) -> DONNConfig:

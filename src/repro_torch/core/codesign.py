@@ -59,6 +59,18 @@ class DeviceSpec:
         return (self.phase_range * v**self.response_gamma).astype(np.float32)
 
 
+def slm(levels: int = 256, response_gamma: float = 1.0,
+        name: str = "slm-lc2012") -> DeviceSpec:
+    """High-precision spatial light modulator preset (visible-range SLM)."""
+    return DeviceSpec(levels=levels, response_gamma=response_gamma, name=name)
+
+
+def printed_mask(levels: int = 4, response_gamma: float = 1.0,
+                 name: str = "printed-mask") -> DeviceSpec:
+    """Low-precision 3D-printed THz mask preset (few thickness levels)."""
+    return DeviceSpec(levels=levels, response_gamma=response_gamma, name=name)
+
+
 def device_for_layer(codesign: str, levels: int,
                      response_gamma: float = 1.0) -> Optional[DeviceSpec]:
     """The DeviceSpec one layer's codesign knobs describe, or None."""

@@ -6,7 +6,11 @@ JAX package; tests/test_torch_geometry.py pins the planes bit-equal to the
 reference's.  The field operators (``propagate_tf``, pad/crop,
 ``intensity``, ``resample_field``) are torch, on whatever device the
 field lives on.  FFTs are ``torch.fft`` (cuFFT on the card), as the
-reference leaves its FFTs to XLA outside any Pallas kernel.
+reference leaves its FFTs to XLA outside any Pallas kernel.  The one-shot
+``propagate`` takes its plane from the port's transfer-function cache
+(``propagation.cached_transfer_function``), so a repeated call builds no
+plane anew and counts in ``tf_cache_stats``; the reference's builds one
+each call and counts nothing.
 """
 from __future__ import annotations
 
@@ -113,6 +117,32 @@ def propagate_tf(u: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return torch.fft.ifft2(torch.fft.fft2(u) * h)
 
 
+def propagate(
+    u: torch.Tensor,
+    grid: Grid,
+    z: float,
+    wavelength: float,
+    method: str = RS,
+    band_limit: bool = True,
+    pad: bool = False,
+) -> torch.Tensor:
+    """One-shot propagation of field(s) u (..., n, n) over distance z.
+
+    Fraunhofer is ``fraunhofer``; ``pad`` embeds u in the 2x zero-padded
+    grid, hops there and crops the centre back; otherwise one
+    ``propagate_tf`` with the (cached) transfer function on u's device.
+    """
+    if method == FRAUNHOFER:
+        return fraunhofer(u, grid, z, wavelength)
+    from repro_torch.core.propagation import cached_transfer_function
+
+    h = torch.from_numpy(cached_transfer_function(
+        grid, z, wavelength, method, band_limit, pad)).to(u.device)
+    if pad:
+        return crop_field(propagate_tf(pad_field(u, grid.n), h), grid.n)
+    return propagate_tf(u, h)
+
+
 def pad_field(u: torch.Tensor, n: int) -> torch.Tensor:
     """Center-embed an (..., n, n) field into the 2x zero-padded grid."""
     lo, hi = n // 2, n - n // 2
@@ -200,6 +230,20 @@ def resample_field(u: torch.Tensor, grid_in: Grid,
         im = torch.einsum("oi,...ij,pj->...op", A, u.imag, A)
         return torch.complex(re, im)
     return torch.einsum("oi,...ij,pj->...op", A, u, A)
+
+
+def fresnel_number(grid: Grid, z: float, wavelength: float) -> float:
+    """Fresnel number a^2/(lambda z) with a = half-aperture (regime check).
+
+    The reference's ``diffraction.fresnel_number``; ``physics.fresnel_number``
+    is the per-geometry spelling the config validator uses."""
+    a = grid.extent / 2.0
+    return a * a / (wavelength * z)
+
+
+def phase_to_field(phi: torch.Tensor) -> torch.Tensor:
+    """exp(j phi) as complex64 from a real phase array."""
+    return torch.exp(1j * phi.to(torch.complex64))
 
 
 def intensity(u: torch.Tensor) -> torch.Tensor:

@@ -178,3 +178,7 @@ class Detector:
         if self.use_pallas:
             return kops.intensity_readout(u, self.masks_t)
         return torch.einsum("...hw,chw->...c", df.intensity(u), self.masks_t)
+
+    def intensity_image(self, u: torch.Tensor) -> torch.Tensor:
+        """The whole detector-plane intensity |u|^2 (..., n, n)."""
+        return df.intensity(u)

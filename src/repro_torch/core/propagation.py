@@ -72,6 +72,7 @@ from repro_torch.kernels import ops as kops
 
 _TF_CACHE: dict = {}
 _TF_CACHE_MAX = 512
+_TF_STATS = {"hits": 0, "misses": 0}
 
 _PLAN_CACHE: dict = {}
 _PLAN_CACHE_MAX = 64
@@ -84,6 +85,19 @@ def tf_cache_key(grid: df.Grid, z: float, wavelength: float, method: str,
                  band_limit: bool, pad: bool) -> tuple:
     return (grid.n, float(grid.pixel_size), float(z), float(wavelength),
             method, bool(band_limit), bool(pad))
+
+
+def tf_cache_stats() -> dict:
+    """Transfer-plane cache counters: a lookup of ``transfer_planes``
+    (and so of ``cached_transfer_function`` and ``diffraction.propagate``)
+    is one hit or one miss."""
+    return dict(_TF_STATS)
+
+
+def clear_tf_cache() -> None:
+    """Drop every cached transfer plane and reset the counters."""
+    _TF_CACHE.clear()
+    _TF_STATS.update(hits=0, misses=0)
 
 
 def plan_cache_stats() -> dict:
@@ -109,7 +123,7 @@ def transfer_planes(grid: df.Grid, z: float, wavelength: float,
     the far-field quadratic output factor instead.
     """
     key = tf_cache_key(grid, z, wavelength, method, band_limit, pad)
-    hit = lru_get(_TF_CACHE, key)
+    hit = lru_get(_TF_CACHE, key, _TF_STATS)
     if hit is not None:
         return hit
     if method == df.FRAUNHOFER:
@@ -414,6 +428,12 @@ class PropagationPlan:
         return torch.stack([self.codesign_stack(p, rng) for p in phis], dim=1)
 
     # --- forward ---
+    @property
+    def segment_slices(self) -> tuple:
+        """Global layer-index ranges of each fused segment: one, the whole
+        stack (``SegmentedPlan`` has one a segment)."""
+        return ((0, self.depth),)
+
     def stack_phases(self, phases) -> torch.Tensor:
         """Per-layer phase arrays -> the (L, N, N) stack ``forward`` runs."""
         return torch.stack(list(phases))

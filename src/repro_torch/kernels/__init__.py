@@ -4,3 +4,6 @@
 ``ref`` the plain PyTorch versions, ``build`` the nvcc build of
 ``csrc/*.cu``.  Nothing here compiles or touches a GPU at import time.
 """
+from repro_torch.kernels import ops
+
+__all__ = ["ops"]

@@ -294,6 +294,13 @@ def selective_scan(dt, x, bs, cs, a):
     return y
 
 
+# the plain versions under the reference's ``ops`` names (holds and tests)
+complex_mul_ref = ref.complex_mul_ref
+phase_apply_ref = ref.phase_apply_ref
+phase_tf_apply_ref = ref.phase_tf_apply_ref
+fused_spectral_hop_ref = ref.fused_spectral_hop_ref
+intensity_readout_ref = ref.intensity_readout_ref
+rope_ref = ref.rope_ref
 selective_scan_ref = ref.selective_scan_ref
 
 

@@ -38,6 +38,17 @@ def phase_tf_apply_ref(x, theta, amp, nb: int):
     return torch.complex(xr * c - xi * s, xr * s + xi * c).reshape(x.shape)
 
 
+def fused_spectral_hop_ref(x, theta_h, amp_h, theta_m, amp_m):
+    """One propagation hop + modulation, M . ifft2(Hc . fft2(x)), unfused:
+    the definition the fused hop's two K1 passes compute
+    (``ops.fused_spectral_hop``).  x: complex (..., H, W); Hc = amp_h *
+    exp(j theta_h) and M = amp_m * exp(j theta_m) broadcast against x.
+    For holds only: no path runs it."""
+    hc = amp_h * torch.exp(1j * theta_h.to(torch.complex64))
+    m = amp_m * torch.exp(1j * theta_m.to(torch.complex64))
+    return m * torch.fft.ifft2(hc * torch.fft.fft2(x))
+
+
 def phase_apply_ref(u, phi, gamma: float):
     """gamma * u * exp(j phi), phi one (H, W) plane for every field (K4)."""
     c = torch.cos(phi) * gamma

@@ -6,6 +6,14 @@ RoPE), ``attention`` (self, cached decode, vlm cross-attention), ``ssm``
 Griffin recurrent block) and ``lm`` (specs, forward, logits, loss, decode
 cache and step).
 """
-from repro_torch.models.config import LMConfig, get_config, list_archs
+from repro_torch.models.config import (
+    LM_SHAPES,
+    LMConfig,
+    ShapeCell,
+    get_config,
+    list_archs,
+)
+from repro_torch.models import lm
 
-__all__ = ["LMConfig", "get_config", "list_archs"]
+__all__ = ["LMConfig", "LM_SHAPES", "ShapeCell", "get_config", "list_archs",
+           "lm"]

@@ -4,12 +4,14 @@
 a torch dtype (default ``torch.bfloat16``), the type every matmul runs in
 while parameters stay float32.  The registry is a plain dict filled from
 ``repro_torch.configs`` (one module per architecture, as in the JAX
-package) and holds all ten of the reference's architectures.
+package) and holds all ten of the reference's architectures;
+``register`` adds a ``(full, smoke)`` factory beside them, called lazily
+as the reference's registry calls its own.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -100,13 +102,29 @@ LM_SHAPES = (
 )
 
 
+_REGISTRY: dict[str, Callable[[], tuple]] = {}
+
+
+def register(name: str):
+    """Decorator: register a factory returning ``(full, smoke)`` under
+    ``name``, so ``get_config`` and ``list_archs`` see it."""
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
 def get_config(name: str, smoke: bool = False) -> LMConfig:
     """The registered FULL (or SMOKE) config of an architecture id."""
     from repro_torch.configs import LM_CONFIGS
 
-    if name not in LM_CONFIGS:
+    if name in LM_CONFIGS:
+        full, smoke_cfg = LM_CONFIGS[name]
+    elif name in _REGISTRY:
+        full, smoke_cfg = _REGISTRY[name]()
+    else:
         raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
-    full, smoke_cfg = LM_CONFIGS[name]
     return smoke_cfg if smoke else full
 
 
@@ -114,4 +132,4 @@ def list_archs() -> list[str]:
     """The architectures the port can build."""
     from repro_torch.configs import LM_CONFIGS
 
-    return sorted(LM_CONFIGS)
+    return sorted(set(LM_CONFIGS) | set(_REGISTRY))

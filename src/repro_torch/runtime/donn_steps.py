@@ -57,6 +57,10 @@ from repro_torch.runtime.collectives import (
 )
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
+# the data-parallel steps split the batch over every mesh axis present,
+# in this order (the reference's rules table for its DONN steps)
+DONN_RULES = {**shd.DEFAULT_RULES, "batch": ("pod", "data", "model")}
+
 
 def donn_state_specs(cfg: DONNConfig) -> dict:
     """ParamSpecs of the train state: phases, AdamW moments, step."""
@@ -205,7 +209,7 @@ def _data_parallel(cfg, mesh, optimizer, global_batch, device,
     right to left until ``global_batch`` divides)."""
     optimizer = optimizer or AdamW(lr=0.01)
     shape = shd.mesh_shape(mesh)
-    dp_axes = tuple(a for a in ("pod", "data", "model") if a in shape)
+    dp_axes = tuple(a for a in DONN_RULES["batch"] if a in shape)
     if global_batch is not None:
         while dp_axes and global_batch % math.prod(
                 shape[a] for a in dp_axes):

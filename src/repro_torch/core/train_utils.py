@@ -44,6 +44,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.optim import AdamW
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -180,8 +181,13 @@ def make_train_chunk(model, optimizer, num_classes: int,
     """
 
     def chunk_fn(params, opt_state, step0, xs, ys, rng=None):
+        with tracing.span("train.chunk", steps=len(xs)):
+            return _chunk(params, opt_state, step0, xs, ys, rng)
+
+    def _chunk(params, opt_state, step0, xs, ys, rng):
         rng = _step_rng(needs_rng, rng)
-        xs, ys = _batch(model, xs, ys)
+        with tracing.span("train.upload"):
+            xs, ys = _batch(model, xs, ys)
         step = torch.as_tensor(step0, dtype=torch.int32, device=model.device)
         losses, accs, skipped = [], [], []
         for xb, yb in zip(xs, ys):

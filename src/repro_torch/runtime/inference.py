@@ -52,6 +52,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import diffraction as df
 from repro_torch.core import models as md
 from repro_torch.core import propagation as pp
@@ -287,9 +288,11 @@ class InferenceEngine:
             idx, count = shd.axes_index(self._mesh, "data")
             rows = xp.shape[0] // count
             xp = xp[idx * rows:(idx + 1) * rows]
-        x = torch.from_numpy(np.ascontiguousarray(xp)).to(self.device)
-        out = (self._rows.forward(x) if self.mp > 1
-               else self.deployed.forward(x))
+        with tracing.span("serve.upload"):
+            x = torch.from_numpy(np.ascontiguousarray(xp)).to(self.device)
+        with tracing.span("serve.forward"):
+            out = (self._rows.forward(x) if self.mp > 1
+                   else self.deployed.forward(x))
         return all_gather_dim(out, self._data_group, 0) if dp else out
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> dict:
@@ -321,8 +324,11 @@ class InferenceEngine:
         for lo in range(0, x.shape[0], b_max):
             chunk = x[lo: lo + b_max]
             bucket = bucket_for(chunk.shape[0], self.buckets)
-            out = self._run(pad_batch(chunk, bucket))
-            outs.append(out.cpu().numpy()[: chunk.shape[0]])
+            with tracing.span("serve.stack"):
+                xp = pad_batch(chunk, bucket)
+            out = self._run(xp)
+            with tracing.span("serve.readback"):
+                outs.append(out.cpu().numpy()[: chunk.shape[0]])
             self.stats["batches"] += 1
             self.stats["requests"] += int(chunk.shape[0])
             self.stats["padded_rows"] += bucket - int(chunk.shape[0])
@@ -434,13 +440,14 @@ def validate_request(deployed: DeployedDONN, x: np.ndarray) -> None:
 class _Request:
     """One queued inference request (slots: this sits on the hot path)."""
 
-    __slots__ = ("x", "future", "t_arrival", "deadline")
+    __slots__ = ("x", "future", "t_arrival", "deadline", "id")
 
-    def __init__(self, x, future, t_arrival, deadline):
+    def __init__(self, x, future, t_arrival, deadline, rid):
         self.x = x
         self.future = future
         self.t_arrival = t_arrival
         self.deadline = deadline  # absolute perf_counter time, or None
+        self.id = rid  # the batcher's count of requests at its submit
 
 
 class MicroBatcher:
@@ -506,8 +513,9 @@ class MicroBatcher:
                 raise OverloadedError(
                     f"admission queue full ({self.max_queue} pending)"
                 )
-            self._pending.append(_Request(x, fut, now, deadline))
             self.stats["submitted"] += 1
+            self._pending.append(_Request(x, fut, now, deadline,
+                                          self.stats["submitted"]))
             self._cv.notify()
         return fut
 
@@ -557,7 +565,8 @@ class MicroBatcher:
         try:
             # the stack is inside the try: a malformed request (validate
             # off) must fail its future, not kill the worker
-            xs = np.stack([r.x for r in group])
+            with tracing.span("serve.stack"):
+                xs = np.stack([r.x for r in group])
             outs = self.engine.infer(xs)
         except Exception as e:  # noqa: BLE001 - propagate to callers
             if len(group) == 1:
@@ -569,10 +578,11 @@ class MicroBatcher:
             self._serve(group[:mid])
             self._serve(group[mid:])
             return
-        for r, out in zip(group, outs):
-            if not r.future.done():
-                r.future.set_result(out)
-            self.stats["served"] += 1
+        with tracing.span("serve.resolve"):
+            for r, out in zip(group, outs):
+                if not r.future.done():
+                    r.future.set_result(out)
+                self.stats["served"] += 1
 
     def _run(self):
         while True:
@@ -586,9 +596,20 @@ class MicroBatcher:
             if not group and not expired:
                 return
             if group:
-                self._serve(group)
+                with tracing.span("serve.batch", rows=len(group)) as batch:
+                    if tracing.is_on():
+                        self._record_queue(group, batch)
+                    self._serve(group)
                 with self._cv:
                     self._inflight = []
+
+    def _record_queue(self, group: list, batch) -> None:
+        """Each request's wait from its submit to its group's take."""
+        taken = time.perf_counter_ns()
+        batch.set(bucket=bucket_for(len(group), self.engine.buckets))
+        for r in group:
+            tracing.record("serve.queue", int(r.t_arrival * 1e9), taken,
+                           parent=batch.id, request=r.id)
 
     def close(self, timeout: float = 30.0) -> bool:
         """Drain the queue and stop the worker.

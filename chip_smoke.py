@@ -364,6 +364,7 @@ SFU_PER_S = 16 * 132 * 1.98e9
 # one a clock: what K7's SASS instruction mix is reckoned against
 ISSUE_PER_S = 4 * 132 * 1.98e9
 KERNEL_RTOL = 1e-5  # max|kernel - plain| / max|plain|
+TP_ATOL = 1e-6  # max|H_kernel - H_plain|, H of unit modulus or less
 ROPE_F32_RTOL = 1e-6  # K6 in f32: one rounding apart from the plain version
 # K6 in bf16: per element within ref.rope_rounding_bound, 3 * 2^-8 *
 # (|x1 c| + |x2 s|): the plain version rounds each bf16 product and the
@@ -402,6 +403,9 @@ KERNEL_META = {
              "src/repro/kernels/rope.py:30"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:48"),
+    # the design flow's candidate-set build; it has no Pallas counterpart
+    "transfer_planes": ("src/repro_torch/kernels/csrc/transfer_planes.cu",
+                        None),
 }
 
 
@@ -834,6 +838,7 @@ def phase_kernels(dev) -> dict:
     rows.update(kernels_k5(dev, gen))
     rows.update(kernels_k6(dev, gen))
     rows.update(kernels_k7(dev, gen))
+    rows.update(kernels_transfer_planes(dev))
     for k, r in rows.items():
         t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = r["flops"] / F32_FLOP_PER_S * 1e3
@@ -1077,6 +1082,51 @@ def kernels_k5(dev, gen) -> dict:
         plain_ms=device_ms(lambda: ref.complex_mul_ref(as_[next(it) % 8], b)),
         library_ms=device_ms(lambda: as_[next(it) % 8] * b),
         nbytes=B * n * n * 16 + n * n * 8, flops=B * n * n * 6)}
+
+
+def _transfer(a, b, polar: bool) -> torch.Tensor:
+    """H from a plane pair: amp e^{j theta} or hr + j hi, in f64."""
+    a, b = a.double(), b.double()
+    return b * torch.exp(1j * a) if polar else torch.complex(a, b)
+
+
+def kernels_transfer_planes(dev) -> dict:
+    """The design flow's plane build against its plain version (torch f64,
+    on the card) at a DSE sweep's set: K=32 geometries drawn as the sweep
+    draws them, L+1=6 gaps, 200x200, band limit on, both methods and both
+    conventions.  H is held within TP_ATOL (theta alone is arbitrary where
+    amp is 0 and wraps at +-pi).  Timed as the sweep builds it (rs,
+    polar); the bound is the 61.4 MB the launch writes."""
+    rng = np.random.default_rng(29)
+    K, G, n = 32, 6, 200
+    geo = torch.tensor(np.column_stack(
+        [rng.uniform(8e-6, 56e-6, K), np.full(K, 532e-9)]
+        + [rng.uniform(0.1, 0.5, K) for _ in range(G)]),
+        dtype=torch.float64, device=dev)
+    errs = []
+    for method in ("rs", "fresnel"):
+        for polar in (True, False):
+            got = _transfer(*ops.transfer_planes_batched(
+                geo, n, method, True, polar), polar)
+            want = _transfer(*ref.transfer_planes_ref(
+                geo, n, method, True, polar), polar)
+            err = (got - want).abs().max().item()
+            what = f"K {K}, {G} gaps, {n}x{n}, {method}, " + (
+                "polar" if polar else "cartesian")
+            print(f"[kernels] transfer_planes {what}: max|dH| {err:.3e} "
+                  f"(tol {TP_ATOL:g})")
+            if not err <= TP_ATOL:
+                raise AssertionError(f"transfer_planes/{what}: {err:.3e} > "
+                                     f"{TP_ATOL:g}")
+            errs.append(err)
+    return {"transfer_planes": dict(
+        max_abs_err=max(errs),
+        ms=device_ms(lambda: ops.transfer_planes_batched(
+            geo, n, "rs", True, True)),
+        plain_ms=device_ms(lambda: ref.transfer_planes_ref(
+            geo, n, "rs", True, True), reps=10, warmup=2),
+        # its writes bound it: the f64 work is not counted at the f32 rate
+        nbytes=G * K * n * n * 4 * 2, flops=0, library_ms=None)}
 
 
 def _hold_rope(what: str, got, want, x, cos, sin) -> float:
@@ -2263,8 +2313,10 @@ def _design_set(what: str, cfgs, params, x, per_call: dict, smi: str,
     out = {}
     got = _counted(lambda: out.update(
         b=emulate_batch(cfgs, params, x, device=dev, **kw)))
+    # a set's first call builds its planes: one launch for the set
     _hold_launches(f"{what}: one emulate_batch call of {len(cfgs)} "
-                   f"candidates", got, per_call, 1, tag="design")
+                   f"candidates", got, {**per_call, "transfer_planes": 1}, 1,
+                   tag="design")
     plist = params if isinstance(params, (list, tuple)) else [params] * len(
         cfgs)
     xt = torch.from_numpy(x).to(dev)

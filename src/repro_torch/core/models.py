@@ -41,6 +41,7 @@ import torch
 from repro_torch import tracing
 from repro_torch.core import codesign as cd
 from repro_torch.core import diffraction as df
+from repro_torch.core import physics
 from repro_torch.core import propagation as pp
 from repro_torch.core.cache import lru_get, lru_put
 from repro_torch.core.config import DONNConfig
@@ -404,7 +405,7 @@ def clear_emulation_caches() -> None:
     _MODEL_CACHE.clear()
     _MODEL_STATS.update(hits=0, misses=0)
     _BATCH_INPUT_CACHE.clear()
-    _BATCH_INPUT_STATS.update(hits=0, misses=0)
+    _BATCH_INPUT_STATS.update(hits=0, misses=0, device_builds=0)
     pp.clear_plan_cache()
 
 
@@ -460,27 +461,14 @@ def _stack_phases(params, depth: int,
     return phis
 
 
-def _pad_planes(planes: np.ndarray, depth: int, pad_to: int) -> np.ndarray:
-    """Pad a (depth+1, ...) TF-plane stack to (pad_to+1, ...).
-
-    Rows [0, depth) are the real layer gaps, row ``depth`` the final hop.
-    Dummy rows (copies of the final-hop plane — any finite plane works,
-    the layer mask makes them identity hops) go *between* the layer gaps
-    and the final hop, so every candidate's final plane sits at the shared
-    index ``pad_to``.
-    """
-    if depth == pad_to:
-        return planes
-    dummy = np.repeat(planes[depth:depth + 1], pad_to - depth, axis=0)
-    return np.concatenate([planes[:depth], dummy, planes[depth:]], axis=0)
-
-
 # candidate-set geometry -> stacked device inputs (TF planes, sources, skip
 # planes).  They are deterministic in the geometry tuple, so warm
-# emulate_batch calls skip the per-candidate host rebuild + re-upload.
+# emulate_batch calls skip the rebuild.  ``device_builds`` counts the misses
+# whose planes ``transfer_planes_batched`` built; the rest (fraunhofer sets)
+# were built on the host.
 _BATCH_INPUT_CACHE: dict = {}
 _BATCH_INPUT_CACHE_MAX = 32
-_BATCH_INPUT_STATS = {"hits": 0, "misses": 0}
+_BATCH_INPUT_STATS = {"hits": 0, "misses": 0, "device_builds": 0}
 
 
 def _batched_inputs(cfgs, base, gamma: float, template, has_skip: bool,
@@ -492,8 +480,13 @@ def _batched_inputs(cfgs, base, gamma: float, template, has_skip: bool,
     ``tf_dtype``), so layer i's planes are one contiguous (K, N, N) slab;
     sources and skip planes (K, N, N).
 
-    Candidates of unequal depth are padded to the deepest one
-    (``template.depth``) by ``_pad_planes``.
+    A candidate set's planes are built on ``dev`` in one launch of
+    ``kops.transfer_planes_batched``, with no plan and no TF-cache entry a
+    candidate: a sweep never reuses a geometry, so caching its planes
+    would only churn the cache that single-model plans share.  Single
+    plans (``PropagationPlan``) still build their planes with numpy,
+    through that cache.  Candidates of unequal depth are padded to the
+    deepest one (``template.depth``): see ``_geometry_table``.
     """
     with tracing.span("dse.inputs") as s:
         key = ("emulate_inputs",
@@ -503,49 +496,84 @@ def _batched_inputs(cfgs, base, gamma: float, template, has_skip: bool,
         s.set(hit=hit is not None)
         if hit is not None:
             return hit
-        entry = _build_batched_inputs(cfgs, base, gamma, template, has_skip,
-                                      dev)
+        entry = _build_batched_inputs(cfgs, base, template, has_skip, dev)
     lru_put(_BATCH_INPUT_CACHE, key, entry, _BATCH_INPUT_CACHE_MAX)
     return entry
 
 
-def _build_batched_inputs(cfgs, base, gamma: float, template,
-                          has_skip: bool, dev: torch.device):
-    """What ``_batched_inputs`` memoizes: the host builds, then each
-    stack and its copy to ``dev``."""
-    with tracing.span("dse.inputs.plans"):
-        plans = [pp.plan_from_config(c, gamma) for c in cfgs]
-        fields = [Laser(wavelength=c.wavelength).field(
-            df.Grid(c.n, c.pixel_size)) for c in cfgs]
-        sk = None
-        if has_skip:
-            # the skip hop covers the remaining distance to the detector
-            # plane, per candidate geometry
-            sk = [pp.transfer_planes(df.Grid(c.n, c.pixel_size),
-                                     float(sum(c.gap_distances()[
-                                         base.skip_from + 1:])),
-                                     c.wavelength, method=base.approximation,
-                                     band_limit=base.band_limit,
-                                     pad=template.pad)
-                  for c in cfgs]
-    L = template.depth
+def _geometry_table(cfgs, depth: int, skip_from: Optional[int]) -> list:
+    """One row a candidate: pixel size, wavelength, then its gaps padded
+    to ``depth`` + 1 and, with a skip, the skip hop's distance.
 
-    def upload(arrays, axis=0):
-        # one host stack at a time: holding them all at once slowed a
-        # sweep 10-19% on the H100 machine
-        with tracing.span("dse.inputs.stack"):
-            stack = np.stack(arrays, axis=axis)
-        with tracing.span("dse.inputs.upload"):
-            return torch.from_numpy(np.ascontiguousarray(stack)).to(dev)
+    Rows [0, d) are a depth-d candidate's layer gaps and row ``depth`` its
+    final hop.  Dummy rows (the final gap again: any finite plane works,
+    the layer mask makes them identity hops) go *between* the layer gaps
+    and the final hop, so every candidate's final plane sits at the shared
+    index ``depth``.  The skip hop covers the rest of the distance to the
+    detector plane from layer ``skip_from``.
+    """
+    rows = []
+    for c in cfgs:
+        gaps = c.gap_distances()
+        row = [float(c.pixel_size), float(c.wavelength), *gaps[:c.depth],
+               *(gaps[c.depth],) * (depth + 1 - c.depth)]
+        if skip_from is not None:
+            row.append(float(sum(gaps[skip_from + 1:])))
+        rows.append(row)
+    return rows
 
-    def upload_tf(k):
-        t = upload([_pad_planes(p._np[k], p.depth, L) for p in plans], axis=1)
-        return t.to(torch.bfloat16) if base.tf_dtype != "float32" else t
 
-    tfs = tuple(upload_tf(k) for k in template._plane_keys)
-    sources = upload(fields)
-    skip_pair = None if sk is None else tuple(
-        upload([p[k] for p in sk]) for k in template._plane_keys)
+def _host_planes(rows, base, keys, pad: bool, dev: torch.device):
+    """The planes of ``_geometry_table``'s rows built on the host from the
+    TF cache, laid out as ``kops.transfer_planes_batched`` lays them out
+    (row g*K + k: candidate k's gap g).  For fraunhofer sets, whose
+    far-field factor the kernel does not build."""
+    planes = [pp.transfer_planes(df.Grid(base.n, row[0]), row[2 + g],
+                                 row[1], base.approximation, base.band_limit,
+                                 pad)
+              for g in range(len(rows[0]) - 2) for row in rows]
+    return tuple(torch.from_numpy(np.stack([p[k] for p in planes])).to(dev)
+                 for k in keys)
+
+
+def _build_batched_inputs(cfgs, base, template, has_skip: bool,
+                          dev: torch.device):
+    """What ``_batched_inputs`` memoizes.  Every candidate is validated
+    first (``physics.check_config``: an invalid geometry raises, a soft
+    criterion warns), as a plan build would validate it."""
+    K, L = len(cfgs), template.depth
+    with tracing.span("dse.inputs.geometry"):
+        for c in cfgs:
+            physics.check_config(c)
+        rows = _geometry_table(cfgs, L, base.skip_from if has_skip else None)
+        # the far-field factor is not a transfer function: the host builds
+        # it, as a single plan does
+        on_dev = base.approximation != df.FRAUNHOFER
+        if on_dev:
+            table = torch.tensor(rows, dtype=torch.float64).to(dev)
+    with tracing.span("dse.inputs.planes"):
+        if on_dev:
+            n = 2 * base.n if template.pad else base.n
+            a, b = kops.transfer_planes_batched(
+                table, n, base.approximation, base.band_limit,
+                polar=template.use_pallas)
+            _BATCH_INPUT_STATS["device_builds"] += 1
+        else:
+            a, b = _host_planes(rows, base, template._plane_keys,
+                                template.pad, dev)
+        hops = (L + 1) * K
+        tfs = tuple(p[:hops].view((L + 1, K) + tuple(p.shape[1:]))
+                    for p in (a, b))
+        skip_pair = tuple(p[hops:] for p in (a, b)) if has_skip else None
+        if base.tf_dtype != "float32":  # storage only: consumers upcast
+            tfs = tuple(t.to(torch.bfloat16) for t in tfs)
+            if skip_pair is not None:  # own copies: the f32 build is freed
+                skip_pair = tuple(p.clone() for p in skip_pair)
+    with tracing.span("dse.inputs.sources"):
+        # the default laser's plane wave (``Laser.field``): sqrt(power)
+        # everywhere, for every candidate
+        sources = torch.full((K, base.n, base.n), math.sqrt(Laser().power),
+                             dtype=torch.complex64, device=dev)
     return tfs, sources, skip_pair
 
 

@@ -2,11 +2,14 @@
 
 The port of ``repro.core.propagation`` for serving and training:
 
-1.  **TF cache** — transfer functions are built once per geometry with
-    numpy and cached process-wide (LRU), as split real/imag planes plus
-    the polar form ``(arg H, |H|)`` the kernels take; band-limit masks and
-    evanescent decay fold into ``|H|``.  Device copies upload lazily, once
-    per device.
+1.  **TF cache** — a single plan's transfer functions are built once per
+    geometry with numpy and cached process-wide (LRU), as split real/imag
+    planes plus the polar form ``(arg H, |H|)`` the kernels take;
+    band-limit masks and evanescent decay fold into ``|H|``.  Device
+    copies upload lazily, once per device.  A candidate set's planes
+    (``models.emulate_batch``) are built on the card instead, all K
+    geometries in one launch (``kernels.ops.transfer_planes_batched``),
+    and never enter this cache: a sweep does not reuse a geometry.
 2.  **Layer loop** — ``forward`` runs the modulated layers as a Python
     loop over the stacked ``(L, N, N)`` planes (the reference's
     ``lax.scan``; PyTorch runs eagerly, so the config's ``scan_unroll``

@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels for the port's hot spots (K1-K7).
+"""Hand-written Hopper kernels for the port's hot spots (K1-K7, and the
+design flow's batched transfer-plane build).
 
 ``ops`` holds the wrappers (kernel on the card, plain version on the CPU),
 ``ref`` the plain PyTorch versions, ``build`` the nvcc build of

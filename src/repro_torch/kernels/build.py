@@ -36,6 +36,7 @@ SOURCES = {
     "intensity_readout": "intensity_readout.cu",
     "rope": "rope.cu",
     "selective_scan": "selective_scan.cu",
+    "transfer_planes": "transfer_planes.cu",
 }
 HEADERS = ("common.cuh",)
 # no --use_fast_math: its __sincosf breaks the 1e-5 parity as |theta| grows

@@ -1,4 +1,6 @@
-"""Wrappers around the port's hand-written Hopper kernels (K1-K7).
+"""Wrappers around the port's hand-written Hopper kernels (K1-K7, and
+``transfer_planes_batched``, which builds a candidate set's transfer
+planes and has no Pallas counterpart).
 
 The public functions keep the JAX package's plane-stack contract
 (``repro.kernels.ops``): ``theta``/``amp`` are one (H, W) plane shared by
@@ -29,8 +31,9 @@ tensor is dL/dRe + j dL/dIm, the reference's split-plane cotangent
 (g_r, g_i), so the formulas carry over unchanged.  The raw wrappers
 (``conj_phase_scale``, ``phase_tf_apply_planes``,
 ``intensity_readout_rows``, ``phase_apply_rows``, ``complex_mul_rows``,
-``rope_rows``) and ``selective_scan`` record no gradient: on the card they
-raise when grad mode is on and an input requires grad.
+``rope_rows``), ``selective_scan`` and ``transfer_planes_batched``
+record no gradient: on the card they raise when grad mode is on and an
+input requires grad.
 
 Every launch adds one to ``LAUNCHES[name]`` — the count that shows a run
 really went through the kernels (``reset_launch_counts`` /
@@ -47,7 +50,8 @@ from torch._subclasses.fake_tensor import FakeTensor
 from repro_torch.kernels import build, ref
 
 KERNELS = ("conj_phase_scale", "phase_tf_apply", "intensity_readout",
-           "phase_apply", "complex_mul", "rope", "selective_scan")
+           "phase_apply", "complex_mul", "rope", "selective_scan",
+           "transfer_planes")
 LAUNCHES = {k: 0 for k in KERNELS}
 _COUNT_LOCK = threading.Lock()  # the serving worker thread launches too
 
@@ -292,6 +296,43 @@ def selective_scan(dt, x, bs, cs, a):
     ), "selective_scan")
     _count("selective_scan")
     return y
+
+
+def transfer_planes_batched(geometry, n: int, method: str, band_limit: bool,
+                            polar: bool):
+    """A candidate set's transfer planes, every candidate and gap at once.
+
+    geometry: (K, 2 + G) float64, each row a candidate's pixel size,
+    wavelength and G propagation distances [m]; n: the plane size (twice
+    the field's under ``pad``); method ``"rs"`` or ``"fresnel"``.  Returns
+    two (G*K, n, n) float32 planes, gap-major (row g*K + k is candidate
+    k's gap g): (arg H, |H|) when ``polar``, (Re H, Im H) otherwise, as
+    ``diffraction.transfer_function`` gives H with the phase in f64.  One
+    launch on the card; no part of a plane passes through the host.
+    """
+    if geometry.dtype != torch.float64 or geometry.dim() != 2 \
+            or geometry.shape[1] < 3:
+        raise ValueError(
+            f"transfer_planes: geometry must be (K, 2 + G) float64 with "
+            f"G >= 1, got {tuple(geometry.shape)} {geometry.dtype}")
+    if method not in ("rs", "fresnel") or not 1 <= n * n < 2 ** 31:
+        raise ValueError(f"transfer_planes: method rs|fresnel and "
+                         f"1 <= n * n < 2^31, got {method!r} and {n}")
+    if not _on_card("transfer_planes", geometry):
+        return ref.transfer_planes_ref(geometry, n, method, band_limit,
+                                       polar)
+    geometry = _dense(geometry)
+    K, G = geometry.shape[0], geometry.shape[1] - 2
+    a, b = (torch.empty((G * K, n, n), dtype=torch.float32,
+                        device=geometry.device) for _ in range(2))
+    lib = build.library("transfer_planes")
+    build.check(lib, lib.transfer_planes(
+        geometry.data_ptr(), a.data_ptr(), b.data_ptr(), K, G, n,
+        int(method == "fresnel"), int(bool(band_limit)), int(bool(polar)),
+        _stream(geometry.device), geometry.get_device(),
+    ), "transfer_planes")
+    _count("transfer_planes")
+    return a, b
 
 
 # the plain versions under the reference's ``ops`` names (holds and tests)

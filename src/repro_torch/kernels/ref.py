@@ -6,14 +6,22 @@ where the kernel rounds once), on the plane-major layout the
 wrappers in ``ops`` hand to the kernels: ``x`` is (P*nb, H, W) complex64,
 ``theta``/``amp`` are (P, H, W) float32 and plane p applies to the slab
 ``x[p*nb:(p+1)*nb]``; K4 takes (B, H, W) fields and one shared (H, W)
-phase plane; K5-K7 take the shapes of their public wrappers.  The
+phase plane; K5-K7 take the shapes of their public wrappers, and
+``transfer_planes_ref`` a candidate set's geometry table.  The
 wrappers run these for tensors on the CPU (the tests);
 ``chip_smoke.py`` runs them on the card to hold each kernel against them.
 Nothing on the serving or training path calls them for a CUDA tensor.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+_TWO_PI = 2.0 * math.pi
+_TWO_PI_HI = float.fromhex("0x1.921fb5p+2")  # 2 pi's top 26 bits
+_TWO_PI_LO = _TWO_PI - _TWO_PI_HI  # exact
+_INV_TWO_PI = 1.0 / _TWO_PI
 
 
 def _slabs(x: torch.Tensor, theta: torch.Tensor, amp: torch.Tensor, nb: int):
@@ -107,3 +115,58 @@ def selective_scan_ref(dt, x, bs, cs, a):
     y, _ = _selective_scan(dt.float(), bs.float(), cs.float(), x.float(),
                            a.float(), h0, chunk=64)
     return y
+
+
+def _wrap(t):
+    """t less its nearest multiple of 2 pi, as the kernel reduces it:
+    Cody-Waite, q = round(t / 2 pi), then t - q C1 - q C2 with C1 + C2 =
+    2 pi in double and q C1 exact."""
+    q = torch.round(t * _INV_TWO_PI)
+    return (t - q * _TWO_PI_HI) - q * _TWO_PI_LO
+
+
+def transfer_planes_ref(geometry, n: int, method: str, band_limit: bool,
+                        polar: bool):
+    """The transfer planes of a candidate set (``transfer_planes``), in
+    f64: ``diffraction.transfer_function`` for every candidate and gap,
+    operation for operation, with the phase reduced mod 2 pi before it is
+    rounded to f32.
+
+    geometry: (K, 2 + G) float64, each row a candidate's pixel size,
+    wavelength and G distances [m]; n: the plane size (2x under ``pad``);
+    method ``"rs"`` or ``"fresnel"``.  Returns two (G*K, n, n) float32
+    planes, row g*K + k candidate k's gap g: (arg H, |H|) when ``polar``,
+    (Re H, Im H) otherwise.
+    """
+    geo = geometry.to(torch.float64)
+    G = geo.shape[1] - 2
+    dx = geo[:, 0].repeat(G)[:, None, None]  # row g*K + k: candidate k
+    lam = geo[:, 1].repeat(G)[:, None, None]
+    z = geo[:, 2:].T.reshape(-1)[:, None, None]
+    m = torch.arange(n, dtype=torch.float64, device=geo.device)
+    m = torch.where(m < (n - 1) // 2 + 1, m, m - n)  # numpy's fftfreq order
+    step = torch.reciprocal(n * dx)
+    fx, fy = m[:, None] * step, m[None, :] * step  # (R, n, 1), (R, 1, n)
+    # a float over a tensor is a reciprocal and a product: divide once
+    k0 = torch.div(_TWO_PI, lam)
+    if method == "fresnel":
+        c = -((math.pi * lam) * z)
+        theta = _wrap(_wrap(k0 * z) + c * (fx * fx + fy * fy))
+        amp = torch.ones_like(theta)
+    else:
+        lx, ly = lam * fx, lam * fy
+        arg = (1.0 - lx * lx) - ly * ly
+        prop = arg >= 0.0
+        theta = torch.where(
+            prop, _wrap(k0 * torch.sqrt(arg.clamp_min(0.0)) * z), 0.0)
+        amp = torch.where(prop, 1.0, torch.exp(
+            -(k0 * torch.sqrt((-arg).clamp_min(0.0))) * z.abs()))
+    if band_limit:
+        r = (2.0 * z) / (n * dx)
+        f_limit = torch.reciprocal(lam * torch.sqrt(r * r + 1.0))
+        keep = (fx.abs() <= f_limit) & (fy.abs() <= f_limit)
+        theta = torch.where(keep, theta, 0.0)
+        amp = torch.where(keep, amp, 0.0)
+    if polar:
+        return theta.float(), amp.float()
+    return (amp * torch.cos(theta)).float(), (amp * torch.sin(theta)).float()

@@ -23,6 +23,7 @@ engines.  Port-internal identities (remat against none, chunked against
 per-step, batched against sequential) are held to 1e-6.
 """
 import dataclasses
+import warnings
 
 import pytest
 
@@ -43,12 +44,17 @@ from repro.core import propagation as jpp  # noqa: E402
 from repro.core import train_utils as jtu  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import codesign as tcd  # noqa: E402
+from repro_torch.core import diffraction as tdf  # noqa: E402
 from repro_torch.core import models as tmod  # noqa: E402
 from repro_torch.core import propagation as tpp  # noqa: E402
 from repro_torch.core import train_utils as ttu  # noqa: E402
 from repro_torch.core.config import DONNConfig, LayerSpec  # noqa: E402
+from repro_torch.core.laser import Laser  # noqa: E402
 from repro_torch.core.models import (  # noqa: E402
     build_model, cached_apply, cached_model, emulate_batch,
+)
+from repro_torch.core.physics import (  # noqa: E402
+    PhysicsValidationError, PhysicsWarning,
 )
 from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
@@ -400,8 +406,10 @@ def _hold_batch(cfgs, tparams, jparams, x, rng=None, train=False,
 
 @pytest.mark.parametrize("kw", [{}, {"use_pallas": True},
                                 {"codesign": "qat", "device_levels": 16},
-                                {"tf_dtype": "bfloat16"}],
-                         ids=["plain", "pallas", "qat", "bf16_planes"])
+                                {"tf_dtype": "bfloat16"},
+                                {"tf_dtype": "bfloat16", "use_pallas": True}],
+                         ids=["plain", "pallas", "qat", "bf16_planes",
+                              "pallas_bf16_planes"])
 def test_emulate_batch_classify_matches_reference_and_sequential(kw):
     cfgs = _cls_cfgs(**kw)
     jp = jbuild(_jax_cfg(cfgs[0])).init(jax.random.PRNGKey(0))
@@ -538,8 +546,9 @@ def test_emulate_batch_inputs_hit_across_calls():
     emulate_batch(cfgs, params, x, device=CPU)
     s1 = tpp.plan_cache_stats()
     assert s1["misses"] == s0["misses"] and s1["hits"] == s0["hits"] + 1
-    assert tmod._BATCH_INPUT_STATS == {"hits": b0["hits"] + 1,
-                                       "misses": b0["misses"]}
+    assert tmod._BATCH_INPUT_STATS == {
+        "hits": b0["hits"] + 1, "misses": b0["misses"],
+        "device_builds": b0["device_builds"]}
 
 
 def test_emulate_batch_batched_inputs_memoized():
@@ -556,19 +565,213 @@ def test_emulate_batch_batched_inputs_memoized():
     assert tmod._BATCH_INPUT_STATS["misses"] == misses + 1
 
 
+def _pad_planes(planes, depth: int, pad_to: int):
+    """A depth-``depth`` plan's (depth+1, N, N) host stack padded to
+    (pad_to+1, N, N): copies of the final-hop plane between the layer
+    gaps and the final hop, which stays at index ``pad_to``."""
+    dummy = np.repeat(planes[depth:depth + 1], pad_to - depth, axis=0)
+    return np.concatenate([planes[:depth], dummy, planes[depth:]], axis=0)
+
+
+def _transfer(a, b, polar: bool):
+    """A plane pair as complex128 H: ``amp * exp(j theta)`` or
+    ``hr + j hi`` (theta is never compared: it is arbitrary where amp is
+    0 and wraps at +-pi)."""
+    a, b = (np.asarray(t, np.float64) for t in (a, b))
+    return b * np.exp(1j * a) if polar else a + 1j * b
+
+
+def _host_planes(c, depth: int, keys):
+    """Candidate ``c``'s planes from its own host plan, depth-padded."""
+    plan = tpp.plan_from_config(c, 1.0)
+    return [_pad_planes(plan._np[k], c.depth, depth) for k in keys]
+
+
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_batched_inputs_keep_the_template_plane_convention(use_pallas):
-    cfgs = [dataclasses.replace(c, tf_dtype="bfloat16", depth=d)
-            for c, d in zip(_cls_cfgs(use_pallas=use_pallas), (2, 3, 2))]
+    """bf16 storage is the f32 build cast, and the f32 build holds each
+    candidate's planes in the template's convention.  The f32 build is
+    not numpy's to the bit, so its bf16 cast may sit one bf16 ulp from
+    the planes ``build_model(c).apply`` casts (see
+    ``test_bf16_batched_planes_within_one_ulp_of_the_sequential_planes``)
+    and emulate_batch need not equal sequential emulation to the bit in
+    bf16."""
+    f32 = [dataclasses.replace(c, depth=d)
+           for c, d in zip(_cls_cfgs(use_pallas=use_pallas), (2, 3, 2))]
+    cfgs = [dataclasses.replace(c, tf_dtype="bfloat16") for c in f32]
     template = tpp.plan_from_config(cfgs[1], 1.0)
     (a, b), src, skip = tmod._batched_inputs(cfgs, cfgs[0], 1.0, template,
                                              False, torch.device(CPU))
     assert a.shape == (4, 3, 48, 48) and a.dtype == torch.bfloat16
     assert src.shape == (3, 48, 48) and skip is None
+    (a32, b32), _, _ = tmod._batched_inputs(
+        f32, f32[0], 1.0, tpp.plan_from_config(f32[1], 1.0), False,
+        torch.device(CPU))
+    assert torch.equal(a, a32.to(torch.bfloat16))
+    assert torch.equal(b, b32.to(torch.bfloat16))
+    for k, c in enumerate(f32):
+        want = _transfer(*_host_planes(c, 3, template._plane_keys),
+                         use_pallas)
+        got = _transfer(a32[:, k], b32[:, k], use_pallas)
+        assert np.max(np.abs(got - want)) <= 1e-6, k
+
+
+def _bf16_ulps(got, want):
+    """Elementwise distance in bf16 ulps (+0 and -0 are one value)."""
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(got) - ordered(want)).abs()
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_bf16_batched_planes_within_one_ulp_of_the_sequential_planes(
+        use_pallas):
+    """In bf16 a set's planes are the f32 build cast, and the planes that
+    ``build_model(c).apply`` uses are its numpy plan's f32 planes cast.
+    The f32 builds differ by up to 1e-6, so the casts may round one bf16
+    ulp apart, never more (theta only where amp > 0: it is arbitrary
+    where amp is 0); the logits hold at that too."""
+    cfgs = [dataclasses.replace(c, n=96, tf_dtype="bfloat16")
+            for c in _cls_cfgs(use_pallas=use_pallas)]
+    template = tpp.plan_from_config(cfgs[0], 1.0)
+    tmod.clear_emulation_caches()
+    planes, _, _ = tmod._batched_inputs(cfgs, cfgs[0], 1.0, template, False,
+                                        torch.device(CPU))
+    keys = template._plane_keys
     for k, c in enumerate(cfgs):
-        planes = tpp.plan_from_config(c, 1.0)._np[template._plane_keys[0]]
-        want = tmod._pad_planes(planes, c.depth, 3)
-        assert torch.equal(a[:, k], torch.from_numpy(want).to(torch.bfloat16))
+        host = tpp.plan_from_config(c, 1.0)._np
+        live = torch.ones(planes[0][:, k].shape, dtype=torch.bool)
+        if use_pallas:
+            live = torch.from_numpy(host["amp"]) > 0
+        for key, got in zip(keys, planes):
+            want = torch.from_numpy(host[key]).to(torch.bfloat16)
+            assert int(_bf16_ulps(got[:, k], want)[live].max()) <= 1, (k, key)
+    x = _digits(seed=3)
+    p = build_model(cfgs[0], device=CPU).init(_gen())
+    got = tmod.emulate_batch(cfgs, p, x, device=CPU)
+    for c, row in zip(cfgs, got):
+        seq = build_model(c, device=CPU).apply(p, torch.from_numpy(x))
+        assert _rel(row.numpy(), seq.numpy()) <= SAME
+
+
+@pytest.mark.parametrize("method,use_pallas,pad", [
+    ("rs", False, False), ("rs", True, False), ("rs", True, True),
+    ("fresnel", True, False), ("fresnel", False, True),
+    ("fraunhofer", True, False)])
+def test_ragged_depth_batched_inputs_equal_padded_host_plans(method,
+                                                             use_pallas, pad):
+    """A ragged-depth set's stacked planes are each candidate's own host
+    plan's, padded to the deepest; sources are the default laser's.
+    Fraunhofer sets are built on the host, bit for bit."""
+    geos = [(36e-6, 532e-9, 0.30, 2), (30e-6, 432e-9, 0.25, 5),
+            (40e-6, 632e-9, 0.35, 3)]
+    cfgs = [DONNConfig(name=f"r{i}", n=24, det_size=4, pixel_size=ps,
+                       wavelength=wl, depth=d, approximation=method,
+                       distances=tuple(D * (1.0 + 0.1 * g)
+                                       for g in range(d + 1)),
+                       use_pallas=use_pallas, pad=pad)
+            for i, (ps, wl, D, d) in enumerate(geos)]
+    with warnings.catch_warnings():
+        # fraunhofer at these distances is near field: the validator warns
+        warnings.simplefilter("ignore")
+        template = tpp.plan_from_config(cfgs[1], 1.0)
+        tmod.clear_emulation_caches()
+        (a, b), src, _ = tmod._batched_inputs(cfgs, cfgs[0], 1.0, template,
+                                              False, torch.device(CPU))
+        keys = template._plane_keys
+        n = 48 if pad and method != "fraunhofer" else 24
+        assert a.shape == (6, 3, n, n) and a.dtype == torch.float32
+        for k, c in enumerate(cfgs):
+            want = _host_planes(c, 5, keys)
+            if method == "fraunhofer":
+                assert torch.equal(a[:, k], torch.from_numpy(want[0]))
+                assert torch.equal(b[:, k], torch.from_numpy(want[1]))
+            else:
+                gap = np.abs(_transfer(a[:, k], b[:, k], use_pallas)
+                             - _transfer(*want, use_pallas))
+                assert np.max(gap) <= 1e-6, k
+            field = Laser(wavelength=c.wavelength).field(
+                tdf.Grid(c.n, c.pixel_size))
+            assert torch.equal(src[k], torch.from_numpy(field))
+    built = 0 if method == "fraunhofer" else 1
+    assert tmod._BATCH_INPUT_STATS == {"hits": 0, "misses": 1,
+                                       "device_builds": built}
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_segmentation_skip_pair_equals_host_planes(use_pallas):
+    """The skip hop's planes (one row a candidate, from the same build)
+    are the host's planes over the rest of the distance to the detector
+    plane."""
+    cfgs = [DONNConfig(name=f"s{i}", n=32, depth=3, segmentation=True,
+                       skip_from=1, layer_norm=True, pixel_size=ps,
+                       distances=(D, 1.1 * D, 1.2 * D, 1.3 * D),
+                       use_pallas=use_pallas)
+            for i, (ps, D) in enumerate([(36e-6, 0.05), (32e-6, 0.045)])]
+    template = tpp.plan_from_config(cfgs[0], 1.0)
+    tfs, _, skip = tmod._batched_inputs(cfgs, cfgs[0], 1.0, template, True,
+                                        torch.device(CPU))
+    assert [t.shape for t in skip] == [(2, 32, 32)] * 2
+    assert tfs[0].shape == (4, 2, 32, 32)
+    for k, c in enumerate(cfgs):
+        want = tpp.transfer_planes(tdf.Grid(c.n, c.pixel_size),
+                                   float(sum(c.gap_distances()[2:])),
+                                   c.wavelength)
+        got = _transfer(skip[0][k], skip[1][k], use_pallas)
+        keys = template._plane_keys
+        gap = np.abs(got - _transfer(want[keys[0]], want[keys[1]],
+                                     use_pallas))
+        assert np.max(gap) <= 1e-6, k
+
+
+def test_invalid_candidate_raises_before_any_plane_is_built():
+    """Every candidate is validated, not only the template: one invalid
+    geometry raises ``PhysicsValidationError``, one that keeps almost no
+    spectrum warns, and neither is skipped for a set built on the card."""
+    tmod.clear_emulation_caches()
+    cfgs = _cls_cfgs()
+    params = build_model(cfgs[0], device=CPU).init(_gen())
+    bad = cfgs[:2] + [dataclasses.replace(cfgs[2], distance=-0.05)]
+    with pytest.raises(PhysicsValidationError, match="geometry"):
+        emulate_batch(bad, params, _digits(), device=CPU)
+    assert tmod._BATCH_INPUT_STATS["device_builds"] == 0
+    # 8 um pitch at 30 m: the band limit keeps under 10% of Nyquist
+    far = cfgs[:2] + [dataclasses.replace(cfgs[2], pixel_size=8e-6,
+                                          distance=30.0)]
+    with pytest.warns(PhysicsWarning, match="band-limit-collapse"):
+        emulate_batch(far, params, _digits(), device=CPU)
+    assert tmod._BATCH_INPUT_STATS["device_builds"] == 1
+
+
+def test_device_builds_count_misses_and_never_hits():
+    """``device_builds`` rises by one a miss built by the batched kernel
+    path, and not on a hit nor on a fraunhofer set built on the host; the
+    candidates leave no entry in the TF cache (the template's plan does)."""
+    tmod.clear_emulation_caches()
+    tpp.clear_tf_cache()
+    cfgs = _cls_cfgs()
+    params = build_model(cfgs[0], device=CPU).init(_gen())
+    x = _digits(seed=3)
+    emulate_batch(cfgs, params, x, device=CPU)
+    assert tmod._BATCH_INPUT_STATS == {"hits": 0, "misses": 1,
+                                       "device_builds": 1}
+    assert tpp.tf_cache_stats()["misses"] == 1  # the template's one gap
+    emulate_batch(cfgs, params, x, device=CPU)
+    assert tmod._BATCH_INPUT_STATS == {"hits": 1, "misses": 1,
+                                       "device_builds": 1}
+    emulate_batch(cfgs[1:], params, x, device=CPU)
+    assert tmod._BATCH_INPUT_STATS == {"hits": 1, "misses": 2,
+                                       "device_builds": 2}
+    far = [dataclasses.replace(c, approximation="fraunhofer") for c in cfgs]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # near field for fraunhofer
+        emulate_batch(far, params, x, device=CPU)
+    assert tmod._BATCH_INPUT_STATS == {"hits": 1, "misses": 3,
+                                       "device_builds": 2}
+    tmod.clear_emulation_caches()
+    assert tmod._BATCH_INPUT_STATS == {"hits": 0, "misses": 0,
+                                       "device_builds": 0}
 
 
 # mixed depth (tests/test_hetero.py::TestMixedDepthEmulateBatch)

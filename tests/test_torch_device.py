@@ -263,6 +263,8 @@ def test_wrappers_launch_kernels_never_plain_versions(cuda, monkeypatch):
     rope32 = _rope_inputs(gen, cuda, torch.float32)
     rope16 = _rope_inputs(gen, cuda, torch.bfloat16)
     scan = _scan_inputs(gen, cuda)
+    geo = torch.tensor([[36e-6, 532e-9, 0.3, 0.2], [20e-6, 633e-9, 0.1, 0.4]],
+                       dtype=torch.float64, device=cuda)
     want = {
         "hop": ops.fused_spectral_hop(x.cpu(), th.cpu(), amp.cpu(), th.cpu(),
                                       amp.cpu()),
@@ -273,14 +275,14 @@ def test_wrappers_launch_kernels_never_plain_versions(cuda, monkeypatch):
         "k6": ops.apply_rope(*(t.cpu() for t in rope32)),
         "k6 bf16": ops.apply_rope(*(t.cpu() for t in rope16)),
         "k7": ops.selective_scan(*(t.cpu() for t in scan)),
+        "planes": ops.transfer_planes_batched(geo.cpu(), 40, "rs", True,
+                                              False)[0],
     }
 
     def forbidden(*a, **k):
         raise AssertionError("a plain version ran on a CUDA tensor")
 
-    for fn in ("conj_phase_scale_ref", "phase_tf_apply_ref",
-               "intensity_readout_ref", "phase_apply_ref", "complex_mul_ref",
-               "rope_ref", "selective_scan_ref"):
+    for fn in _PLAIN_VERSIONS:
         monkeypatch.setattr(ref, fn, forbidden)
     ops.reset_launch_counts()
     got = {
@@ -292,6 +294,7 @@ def test_wrappers_launch_kernels_never_plain_versions(cuda, monkeypatch):
         "k6": ops.apply_rope(*rope32),
         "k6 bf16": ops.apply_rope(*rope16),
         "k7": ops.selective_scan(*scan),
+        "planes": ops.transfer_planes_batched(geo, 40, "rs", True, False)[0],
     }
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"conj_phase_scale": 2,
@@ -300,7 +303,8 @@ def test_wrappers_launch_kernels_never_plain_versions(cuda, monkeypatch):
                                    "phase_apply": 1,
                                    "complex_mul": 1,
                                    "rope": 2,
-                                   "selective_scan": 1}
+                                   "selective_scan": 1,
+                                   "transfer_planes": 1}
     tols = {"k6": 1e-6}
     for k in want:
         assert got[k].device.type == "cuda"
@@ -525,7 +529,8 @@ def test_serving_slice_on_the_card_matches_cpu(cuda):
                             for f in [mb.submit(xi) for xi in x]])
         assert mb.close(timeout=30)
         counts = ops.launch_counts()
-        for k in ("phase_apply", "complex_mul", "rope", "selective_scan"):
+        for k in ("phase_apply", "complex_mul", "rope", "selective_scan",
+                  "transfer_planes"):
             assert counts.pop(k) == 0  # not on the frozen serving path
         assert min(counts.values()) > 0, counts
         want = freeze(cpu_model, cpu_params, dtype, rfft,
@@ -538,7 +543,8 @@ def test_serving_slice_on_the_card_matches_cpu(cuda):
 
 _PLAIN_VERSIONS = ("conj_phase_scale_ref", "phase_tf_apply_ref",
                    "intensity_readout_ref", "phase_apply_ref",
-                   "complex_mul_ref", "rope_ref", "selective_scan_ref")
+                   "complex_mul_ref", "rope_ref", "selective_scan_ref",
+                   "transfer_planes_ref")
 
 
 def _forbid_plain_versions(monkeypatch):
@@ -663,11 +669,12 @@ def _no_plane_major(monkeypatch):
 
 def test_emulate_batch_runs_k_major_slabs_through_the_kernels(cuda,
                                                               monkeypatch):
-    """K candidates of each family as one candidate-major field: K1 twice a
-    layer and K2 once for all K (the final hop; segmentation's skip hop is
-    a second K2), K3 once over the K*B (K*C*B) rows, never a plain version
-    or a plane-major transpose; against the same call on CPU copies."""
-    from repro_torch.core.models import emulate_batch
+    """K candidates of each family as one candidate-major field: the set's
+    planes in one build, K1 twice a layer and K2 once for all K (the final
+    hop; segmentation's skip hop is a second K2), K3 once over the K*B
+    (K*C*B) rows, never a plain version or a plane-major transpose;
+    against the same call on CPU copies."""
+    from repro_torch.core.models import clear_emulation_caches, emulate_batch
 
     geos = [(36e-6, 0.05), (30e-6, 0.04), (40e-6, 0.06)]
     cases = {
@@ -689,6 +696,8 @@ def test_emulate_batch_runs_k_major_slabs_through_the_kernels(cuda,
         want = emulate_batch(cfgs, [tree_map(lambda t: t.cpu(), p)
                                     for p in params], x, device="cpu",
                              **kwargs)
+        # the families share their geometry: each builds its own set
+        clear_emulation_caches()
         with monkeypatch.context() as m:
             _forbid_plain_versions(m)
             _no_plane_major(m)
@@ -697,9 +706,60 @@ def test_emulate_batch_runs_k_major_slabs_through_the_kernels(cuda,
             torch.cuda.synchronize()
             counts = ops.launch_counts()
         assert counts == {**dict.fromkeys(ops.KERNELS, 0),
-                          "conj_phase_scale": 2 * CFG.depth, **launches}, \
-            family
+                          "conj_phase_scale": 2 * CFG.depth,
+                          "transfer_planes": 1, **launches}, family
         assert _rel(got, want) <= 1e-4, family
+
+
+def _transfer(a, b, polar: bool) -> torch.Tensor:
+    a, b = a.double(), b.double()
+    return b * torch.exp(1j * a) if polar else torch.complex(a, b)
+
+
+def test_transfer_planes_kernel_matches_its_plain_version(cuda):
+    """A DSE sweep's candidate set (K=32 geometries, L+1=6 gaps, 200x200)
+    in one launch, both conventions and both methods, against the plain
+    version in f64 on the card and against the host's numpy planes: H
+    within 1e-6 (theta is compared through amp exp(j theta)); it repeats
+    to the bit.  Then a sub-half-wavelength pitch, whose planes reach the
+    evanescent decay, with and without the band limit and under pad."""
+    from repro_torch.core import diffraction as df
+    from repro_torch.core import propagation as pp
+
+    rng = np.random.default_rng(29)
+    K, G = 32, 6
+    sweep = np.column_stack([rng.uniform(8e-6, 56e-6, K), np.full(K, 532e-9)]
+                            + [rng.uniform(0.1, 0.5, K)] * G)
+    tiny = np.array([[2e-7, 532e-9, 1e-6, 3e-6]])
+    # (geometry, field size, pad, method, band limit, polar)
+    cases = [(sweep, 200, False, m, True, polar) for m in ("rs", "fresnel")
+             for polar in (True, False)]
+    cases += [(tiny, 48, pad, "rs", bl, polar) for pad in (False, True)
+              for bl in (True, False) for polar in (True, False)]
+    for geo, n, pad, method, bl, polar in cases:
+        N = 2 * n if pad else n
+        Kc = geo.shape[0]
+        t = torch.tensor(geo, dtype=torch.float64, device=cuda)
+        ops.reset_launch_counts()
+        a, b = ops.transfer_planes_batched(t, N, method, bl, polar)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["transfer_planes"] == 1
+        assert a.shape == (Kc * (geo.shape[1] - 2), N, N)
+        got = _transfer(a, b, polar)
+        want = _transfer(*ref.transfer_planes_ref(t, N, method, bl, polar),
+                         polar)
+        what = (N, method, bl, polar)
+        assert float((got - want).abs().max()) <= 1e-6, what
+        again = ops.transfer_planes_batched(t, N, method, bl, polar)
+        assert torch.equal(again[0], a) and torch.equal(again[1], b), what
+        for k in (0, Kc - 1):
+            for g in (0, geo.shape[1] - 3):
+                h = pp.transfer_planes(df.Grid(n, geo[k, 0]), geo[k, 2 + g],
+                                       geo[k, 1], method, bl, pad)
+                host = torch.from_numpy(h["hr"].astype(np.float64)
+                                        + 1j * h["hi"])
+                row = got[g * Kc + k].cpu()
+                assert float((row - host).abs().max()) <= 1e-6, (what, k, g)
 
 
 def test_remat_backward_relaunches_exactly_the_forward_kernels(cuda):

@@ -1,9 +1,11 @@
 """The port's static geometry, encoders and codesign against the JAX package.
 
 Geometry built with numpy (transfer planes, detector masks, laser fields)
-must be bit-equal; the config dataclasses and the physics validator must
-be the same objects field by field and criterion by criterion; the torch
-encoders and the deploy-time codesign must match the reference's values.
+must be bit-equal, and a candidate set's batched transfer planes (built
+in f64 by torch) within 1e-6 of the port's numpy planes; the config
+dataclasses and the physics validator must be the same objects field by
+field and criterion by criterion; the torch encoders and the deploy-time
+codesign must match the reference's values.
 Inputs come from seeded numpy generators and feed both sides.
 """
 import dataclasses
@@ -37,6 +39,7 @@ from repro_torch.core import layers as tlayers  # noqa: E402
 from repro_torch.core import physics as tphys  # noqa: E402
 from repro_torch.core import propagation as tpp  # noqa: E402
 from repro_torch.core.models import config_static_key  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
 
 
 def _jcfg(tcfg):
@@ -134,6 +137,58 @@ def test_transfer_planes_bit_equal(method, band_limit, pad):
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+# (pixel size, wavelength, distance): three DSE geometries and one pitch
+# under half a wavelength, whose grid reaches the evanescent frequencies
+BATCH_GEOS = [(36e-6, 532e-9, 0.30), (8e-6, 432e-9, 0.50),
+              (56e-6, 633e-9, 0.10), (2e-7, 532e-9, 1e-6)]
+
+
+@pytest.mark.parametrize("method,band_limit,pad", [
+    (m, b, p) for m in ("rs", "fresnel") for b in (True, False)
+    for p in (False, True)])
+def test_batched_transfer_planes_match_the_host_build(method, band_limit,
+                                                      pad):
+    """The batched build's plain version (the kernel's CPU path, through
+    its wrapper) gives every candidate's and gap's H as the host build
+    does, to 1e-6, in both conventions.  H is compared as amp exp(j theta)
+    against hr + j hi: theta alone is arbitrary where amp is 0 and wraps at
+    +-pi."""
+    n = 24
+    N = 2 * n if pad else n
+    gaps = (1.0, 0.5)  # each candidate's distance times these
+    table = torch.tensor([(dx, wl, z * gaps[0], z * gaps[1])
+                          for dx, wl, z in BATCH_GEOS], dtype=torch.float64)
+    polar = kops.transfer_planes_batched(table, N, method, band_limit, True)
+    cart = kops.transfer_planes_batched(table, N, method, band_limit, False)
+    K = len(BATCH_GEOS)
+    for g, scale in enumerate(gaps):
+        for k, (dx, wl, z) in enumerate(BATCH_GEOS):
+            h = tpp.transfer_planes(tdf.Grid(n, dx), z * scale, wl, method,
+                                    band_limit, pad)
+            want = h["hr"].astype(np.float64) + 1j * h["hi"]
+            row = g * K + k
+            th, amp = (t[row].double().numpy() for t in polar)
+            hr, hi = (t[row].double().numpy() for t in cart)
+            assert np.max(np.abs(amp * np.exp(1j * th) - want)) <= 1e-6
+            assert np.max(np.abs(hr + 1j * hi - want)) <= 1e-6
+    amps = polar[1][(K - 1)::K]  # the sub-wavelength pitch's rows
+    if method == "rs":  # its evanescent decay lies strictly inside (0, 1)
+        assert bool(((amps > 0) & (amps < 0.999)).any())
+    assert polar[0].shape == (2 * K, N, N) and polar[0].dtype == torch.float32
+
+
+def test_batched_transfer_planes_refuse_what_the_kernel_cannot_build():
+    table = torch.tensor([[36e-6, 532e-9, 0.3]], dtype=torch.float64)
+    with pytest.raises(ValueError, match="float64"):
+        kops.transfer_planes_batched(table.float(), 8, "rs", True, True)
+    with pytest.raises(ValueError, match="G >= 1"):
+        kops.transfer_planes_batched(table[:, :2], 8, "rs", True, True)
+    with pytest.raises(ValueError, match="method rs"):
+        kops.transfer_planes_batched(table, 8, "fraunhofer", True, True)
+    with pytest.raises(ValueError, match="2\\^31"):
+        kops.transfer_planes_batched(table, 50_000, "rs", True, True)
 
 
 @pytest.mark.parametrize("n,C,det,layout", [

@@ -205,6 +205,8 @@ def test_exported_signatures_read_the_c_prototypes():
     }
     launchers["complex_mul"]["complex_mul"] = ([P, P, P, I64, I64, P, INT],
                                                INT)
+    launchers["transfer_planes"] = {"transfer_planes": (
+        [P, P, P, I64, I64, I64, INT, INT, INT, P, INT], INT)}
     assert set(launchers) == set(kbuild.SOURCES)
     for name, want in launchers.items():
         got = kbuild.source_signatures(name)
@@ -260,6 +262,8 @@ def test_card_wrappers_pass_the_launchers_their_c_arguments(monkeypatch):
     kops.selective_scan(torch.zeros((2, 5, 7)), torch.zeros((2, 5, 7)),
                         torch.zeros((2, 5, 3)), torch.zeros((2, 5, 3)),
                         torch.zeros((7, 3)))
+    kops.transfer_planes_batched(torch.zeros((3, 5), dtype=torch.float64),
+                                 9, "fresnel", True, False)
     assert libs["spectral_hop"].calls == ["conj_phase_scale"]
     assert libs["complex_mul"].calls == ["phase_tf_apply", "phase_apply",
                                          "complex_mul"]
@@ -267,6 +271,7 @@ def test_card_wrappers_pass_the_launchers_their_c_arguments(monkeypatch):
                                                "intensity_readout"]
     assert libs["rope"].calls == ["rope_f32", "rope_bf16"]
     assert libs["selective_scan"].calls == ["selective_scan"]
+    assert libs["transfer_planes"].calls == ["transfer_planes"]
     assert kops.launch_counts() == {**dict.fromkeys(kops.KERNELS, 1),
                                     "rope": 2}
     kops.reset_launch_counts()
@@ -285,6 +290,8 @@ def test_cpu_path_launches_nothing():
     kops.apply_rope(th[None], th[:, :4], th[:, :4])
     kops.selective_scan(th[None], th[None], th[None, :, :2], th[None, :, :2],
                         th[:, :2])
+    kops.transfer_planes_batched(torch.full((2, 4), 1e-5, dtype=torch.float64),
+                                 8, "rs", True, True)
     assert kops.launch_counts() == dict.fromkeys(kops.KERNELS, 0)
 
 

@@ -183,9 +183,9 @@ def test_emulate_batch_spans_miss_then_hit():
                         "dse.upload_x", "dse.forward"]
         assert inp.parent == call.id
     build = [s.name for s in spans if s.parent == inputs[0].id]
-    # the plans, then each stack (two TF planes, the sources) and its copy
-    assert build == ["dse.inputs.plans"] + ["dse.inputs.stack",
-                                            "dse.inputs.upload"] * 3
+    # validation and the geometry table, the planes' one build, the sources
+    assert build == ["dse.inputs.geometry", "dse.inputs.planes",
+                     "dse.inputs.sources"]
     assert not [s for s in spans if s.name.startswith("dse.inputs.")
                 and s.parent != inputs[0].id]
     clear_emulation_caches()

@@ -5,10 +5,17 @@
 profiler names them, and to the cost of one launch at its argument
 shapes.  Bytes count each input read once and each output written once;
 fields are complex64 (8 bytes), planes and masks float32 (4 bytes).
+
+It holds the DONN kernels below (``KERNELS``) and the ``ENTRY_POINTS``
+of every cost file ``counts/kernels_<name>.py`` beside this one, so a
+new family's kernels are counted by a file of their own; an entry point
+counted twice raises.  A cost file may import this module's constants.
 """
 from __future__ import annotations
 
+import importlib.util
 import math
+import pathlib
 
 C64 = 8
 F32 = 4
@@ -38,7 +45,7 @@ def _readout(shapes) -> tuple:
 
 # entry point -> (device kernel name fragments, cost of one launch, the
 # name the port's launch counter (``ops.launch_counts``) gives it)
-ENTRY_POINTS = {
+KERNELS = {
     "conj_phase_scale": (("conj_phase_scale_kernel",), _plane_pair,
                          "conj_phase_scale"),
     "phase_tf_apply_planes": (("phase_tf_apply_kernel",), _plane_pair,
@@ -82,3 +89,34 @@ def fft_cost(function: str, shape, dims) -> tuple:
     batch = math.prod(shape) // math.prod(shape[d] for d in dims)
     per = 5.0 * points * math.log2(points) if points > 1 else 0.0
     return (per if kind == "c2c" else per / 2.0) * batch, nbytes
+
+
+HERE = pathlib.Path(__file__).resolve().parent
+
+
+def cost_files(directory: pathlib.Path = HERE) -> list:
+    """The modules ``kernels_<name>.py`` in ``directory``, by name."""
+    out = []
+    for path in sorted(directory.glob("kernels_*.py")):
+        spec = importlib.util.spec_from_file_location(
+            f"portbench.counts.{path.stem}", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        out.append(module)
+    return out
+
+
+def entry_points(modules) -> dict:
+    """``KERNELS`` with each module's ``ENTRY_POINTS``; an entry point
+    that two of them count raises ``ValueError``."""
+    out = dict(KERNELS)
+    for module in modules:
+        for name, entry in module.ENTRY_POINTS.items():
+            if name in out:
+                raise ValueError(f"{module.__name__} counts entry point "
+                                 f"{name!r}, which is counted already")
+            out[name] = entry
+    return out
+
+
+ENTRY_POINTS = entry_points(cost_files())

@@ -7,7 +7,8 @@ Each call scores ``candidates`` geometries of one configuration on
   seed (unit size and distance uniform on the traffic's ranges, never
   repeating) and its own phases for every candidate, and is scored on
   the ``validation_images`` in ``calls_per_set`` calls; then set i + 1.
-  Every set pays the port's host-side build of its transfer planes.
+  Every set pays the port's build of its transfer planes, one
+  ``transfer_planes`` launch on the card.
 - ``fresh_sets: false`` (a shortlist): one set drawn at set-up, scored
   on fresh images from a host pool every call.
 
@@ -30,6 +31,15 @@ from portbench.reference import donn as ref
 
 FAULTS = ("answer",)
 WARM_SET = -1  # the set drawn only to warm up
+
+
+def span_metrics(traffic: dict) -> dict:
+    """A sweep builds every set's inputs, and reads the preparation of a
+    call that finds them built only from a set's second call on; a
+    shortlist finds them built at every call (``drivers/__init__.py``)."""
+    if traffic["fresh_sets"]:
+        return {"dse.inputs_build_ms": True, "dse.prep_ms": False}
+    return {"dse.prep_ms": True}
 
 
 class Driver:

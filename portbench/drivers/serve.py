@@ -35,6 +35,14 @@ FAULTS = ("answer",)
 ANSWER_WAIT_S = 60.0  # an answer later than this never came
 
 
+def span_metrics(traffic: dict) -> dict:
+    """Every batch waits in the queue and runs on the host
+    (``drivers/__init__.py``); its launches are read from the card's
+    trace alone."""
+    return {"serve.queue_wait_ms": True, "serve.serial_host_ms": True,
+            "serve.launches_per_batch": False}
+
+
 class Driver:
     def __init__(self, cell, seed: int, device, tracer, fault=None):
         if fault not in (None,) + FAULTS:

@@ -35,6 +35,11 @@ MIN_LEAF = 1e-3  # leaves whose reference gradient is under this share of
 # the median leaf's move by round-off alone: left out of the change
 
 
+def span_metrics(traffic: dict) -> dict:
+    """Every chunk call waits on its upload (``drivers/__init__.py``)."""
+    return {"train.upload_wait_ms": True}
+
+
 class Driver:
     def __init__(self, cell, seed: int, device, tracer, fault=None):
         if fault not in (None,) + FAULTS:

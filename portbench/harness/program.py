@@ -1,5 +1,9 @@
 """What the harness hands the port: its configuration and weights.
 
+A configuration file's fields become the port's ``DONNConfig``
+(``donn_config``) or, for a language model, its ``LMConfig``
+(``lm_config``).
+
 The weights are the harness's, made on the device from the seed in one
 call, and never the port's ``init``: the reference can make the same
 ones again without taking anything the port computed.
@@ -18,6 +22,35 @@ def donn_config(fields: dict):
     from repro_torch.core.config import DONNConfig
 
     return DONNConfig(**fields)
+
+
+def lm_fields(fields: dict) -> dict:
+    """A configuration file's fields as the port's ``LMConfig`` takes
+    them: ``dtype``'s name (``"bfloat16"``) as the torch dtype, a list
+    as a tuple."""
+    out = {}
+    for k, v in fields.items():
+        if k == "dtype":
+            v = getattr(torch, v, None)
+            if not isinstance(v, torch.dtype):
+                raise ValueError(f"dtype {fields[k]!r} names no torch dtype")
+        elif isinstance(v, list):
+            v = tuple(v)
+        out[k] = v
+    return out
+
+
+def lm_config(fields: dict):
+    """The port's ``LMConfig`` from a configuration file's fields.  Keys
+    that are no field of it, such as a catalog model's own names for its
+    sizes kept beside the fields, are left out."""
+    import dataclasses
+
+    from repro_torch.models.config import LMConfig
+
+    names = {f.name for f in dataclasses.fields(LMConfig)}
+    return LMConfig(**{k: v for k, v in lm_fields(fields).items()
+                       if k in names})
 
 
 def phases(seed: int, tag: int, shape, device) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Finding a cell's files by the names in ``BENCHMARK.json``.
 
 - configuration ``<c>``: the file its ``configs`` entry names (under
-  ``configs/``), holding the ``DONNConfig`` fields as run, the registered
-  name and overrides they come from, and a ``smoke`` twin for the CPU;
+  ``configs/``), holding the fields as run (a ``DONNConfig``'s or an
+  ``LMConfig``'s), the registered name and overrides they come from, and
+  a ``smoke`` twin for the CPU;
 - traffic ``<t>``: ``traffic/<t>.json``, whose ``driver`` names the
   module ``drivers/<driver>.py`` that runs it;
 - correctness limits of cell ``<w>``: ``limits/<w>.json``;

@@ -1,6 +1,8 @@
 """The window's model FLOPs (``counts/donn.py``, from the configuration's
 shapes: three forwards a training sample) over the window's seconds at
-the chip's float32 peak."""
+the chip's peak in the precision the cell computes in: the driver's
+``peak_flops`` reading where it hands one (``counts/peaks.py``), else
+the float32 peak, which the DONN drivers compute at."""
 from portbench.counts import peaks
 
 
@@ -8,4 +10,5 @@ def read(trace, metric, cell):
     flops = trace.readings.get("model_flops", 0.0)
     if flops <= 0.0 or trace.busy_s <= 0.0:
         return None
-    return 100.0 * flops / (trace.window_s * peaks.F32_FLOPS)
+    peak = trace.readings.get("peak_flops", peaks.F32_FLOPS)
+    return 100.0 * flops / (trace.window_s * peak)

@@ -15,13 +15,14 @@ of the two read the recorder's cost.
 
 One JSON line a window goes to standard output (and to
 ``DIR/<cell>.spans.jsonl``): the rates the window read; the cell's
-per-layer metrics with the span metrics of ``PER_LAYER`` that list it;
+per-layer metrics with the span metrics of ``per_layer()`` that list it;
 the idle gaps labelled with the port's spans, the share of idle seconds
 that a port span names, and for the rest the spans on either side; and
 the cross-checks of the span metrics against the readings taken from
-outside.  ``PER_LAYER`` holds the span metrics' entries as
-``BENCHMARK.json`` would list them; the benchmark's own runs read none
-of them yet.
+outside.  ``per_layer()`` gives the span metrics' entries as
+``BENCHMARK.json`` would list them, each cell taken from what its
+traffic's driver declares (``span_metrics`` in ``drivers/``); the
+benchmark's own runs read none of them yet.
 """
 from __future__ import annotations
 
@@ -31,29 +32,49 @@ import pathlib
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-SERVE, SWEEP, SHORTLIST, TRAIN = ("xl500-serve-c64", "mnist5l-dse-sweep",
-                                  "mnist5l-dse-shortlist", "xl500-train-b128")
 
 
-def _metric(name, unit, source, layer, moves, workloads) -> dict:
+def _metric(name, unit, source, layer, moves) -> dict:
     return {"name": name, "unit": unit, "better": "lower", "source": source,
-            "layer": layer, "moves": moves, "workloads": workloads}
+            "layer": layer, "moves": moves}
 
 
-PER_LAYER = [
+# the span metrics' entries less their cells (``per_layer``)
+METRICS = [
     _metric("serve.queue_wait_ms", "ms", "program_span", "serving engine",
-            "serve_p95_ms", [SERVE]),
+            "serve_p95_ms"),
     _metric("serve.serial_host_ms", "ms", "program_span", "serving engine",
-            "serve_req_s", [SERVE]),
+            "serve_req_s"),
     _metric("serve.launches_per_batch", "count", "device_trace",
-            "serving engine", "serve_req_s", [SERVE]),
+            "serving engine", "serve_req_s"),
     _metric("dse.inputs_build_ms", "ms", "program_span", "design flow",
-            "emulate_samples_per_s", [SWEEP]),
+            "emulate_samples_per_s"),
     _metric("dse.prep_ms", "ms", "program_span", "design flow",
-            "emulate_samples_per_s", [SWEEP, SHORTLIST]),
+            "emulate_samples_per_s"),
     _metric("train.upload_wait_ms", "ms", "program_span", "training driver",
-            "train_samples_per_s", [TRAIN]),
+            "train_samples_per_s"),
 ]
+
+
+def declared(cell) -> dict:
+    """The span metrics the cell's driver declares for its traffic: name
+    -> whether every window reads it (``drivers/__init__.py``)."""
+    from portbench.harness import spec
+
+    return spec.driver_module(cell).span_metrics(cell.traffic)
+
+
+def per_layer(root: pathlib.Path = ROOT) -> list:
+    """``METRICS``, each with ``workloads``: the cells of
+    ``BENCHMARK.json`` whose driver declares it, in their order there."""
+    from portbench.harness import spec
+
+    cells = [spec.resolve(w["name"], root=root)
+             for w in spec.load_benchmark(root)["workloads"]]
+    of = {c.name: declared(c) for c in cells}
+    return [dict(m, workloads=[c.name for c in cells
+                               if m["name"] in of[c.name]])
+            for m in METRICS]
 
 
 def port_named_share(idle_gaps) -> float:
@@ -129,7 +150,7 @@ def run(name: str, seed: int, seconds: float, windows, device, emit,
     driver = spec.driver_module(cell).Driver(cell, seed, device, tracer)
     driver.setup()
     seconds = min(float(seconds), float(cell.traffic["trace_seconds"]))
-    metrics_of = cell.per_layer + [m for m in PER_LAYER
+    metrics_of = cell.per_layer + [m for m in per_layer()
                                    if name in m["workloads"]]
     rows = []
     for i, word in enumerate(windows):

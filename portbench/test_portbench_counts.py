@@ -1,6 +1,7 @@
 """The yardstick's counts against hand counts, and each per-layer
 reader on a trace made up for it."""
 import math
+import types
 
 import pytest
 
@@ -70,6 +71,36 @@ def test_idle_share_and_mfu():
     idle = _trace(busy_s=0.0, readings={"model_flops": 1.0})
     assert _read("idle_share.serve", idle) is None
     assert _read("mfu.serve", idle) is None
+
+
+def test_mfu_divides_by_the_peak_the_driver_hands_it():
+    flops = 989.4e12 * 0.1  # a tenth of the bf16 peak over the 2 s window
+    bf16 = _trace(readings={"model_flops": flops,
+                            "peak_flops": peaks.BF16_FLOPS})
+    assert _read("mfu.train", bf16) == pytest.approx(5.0)
+    f32 = _trace(readings={"model_flops": flops})  # as the DONN drivers
+    assert _read("mfu.train", f32) == pytest.approx(
+        100.0 * flops / (2.0 * 67e12))
+    assert peaks.BF16_FLOPS == 989.4e12 and peaks.F32_FLOPS == 67e12
+
+
+def test_entry_points_merge_cost_files(tmp_path):
+    assert kernels.ENTRY_POINTS == kernels.KERNELS  # no cost file yet
+    (tmp_path / "kernels_made_up.py").write_text(
+        "from portbench.counts.kernels import F32\n"
+        "ENTRY_POINTS = {'made_up': (('made_up_kernel',),\n"
+        "                 lambda shapes: (1.0, F32), 'made_up')}\n")
+    (tmp_path / "other.py").write_text("ENTRY_POINTS = {'other': None}\n")
+    files = kernels.cost_files(tmp_path)
+    assert [m.__name__ for m in files] == ["portbench.counts.kernels_made_up"]
+    merged = kernels.entry_points(files)
+    assert set(merged) == set(kernels.KERNELS) | {"made_up"}
+    assert merged["made_up"][1](()) == (1.0, 4)
+    assert merged["conj_phase_scale"] is kernels.KERNELS["conj_phase_scale"]
+    clash = types.ModuleType("portbench.counts.kernels_clash")
+    clash.ENTRY_POINTS = {"intensity_readout_rows": (("x",), None, "x")}
+    with pytest.raises(ValueError, match="intensity_readout_rows"):
+        kernels.entry_points(files + [clash])
 
 
 def test_kernel_roofline_reads_only_counted_launches():

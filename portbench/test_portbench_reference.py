@@ -1,5 +1,8 @@
-"""The plain reference against the port on the CPU (``use_pallas`` off):
-the same physics from the same configuration, worked out apart."""
+"""The plain DONN classifier reference (``reference/donn.py``) against
+the port on the CPU (``use_pallas`` off), over the configurations whose
+file names it: the same physics from the same configuration, worked out
+apart.  A configuration that names another reference ``<ref>`` is held
+to it by ``test_portbench_reference_<ref>.py``."""
 import json
 
 import numpy as np
@@ -9,8 +12,10 @@ import torch
 from portbench.harness import images, program, spec
 from portbench.reference import donn as ref
 
-CONFIGS = {c["name"]: json.loads((spec.ROOT / c["file"]).read_text())
-           for c in spec.load_benchmark()["configs"]}
+FILES = {c["name"]: json.loads((spec.ROOT / c["file"]).read_text())
+         for c in spec.load_benchmark()["configs"]}
+CONFIGS = {name: raw for name, raw in FILES.items()
+           if raw["reference"] == "donn"}
 
 
 def _fields(name, smoke=False):
@@ -96,3 +101,16 @@ def test_images_are_fixed_by_the_seed_and_carry_unit_power():
     assert not np.array_equal(a, c)
     assert np.allclose((a.astype(np.float64) ** 2).sum((1, 2)), 1.0)
     assert set(np.unique(la)) <= set(range(10))
+
+
+def test_every_reference_a_configuration_names_has_its_tests():
+    """No configuration joins without its reference and tests of it: the
+    DONN classifier's are this file's, another reference ``<ref>``'s are
+    in ``test_portbench_reference_<ref>.py``."""
+    for name, raw in FILES.items():
+        ref_name = raw["reference"]
+        assert (spec.PACKAGE / "reference" / f"{ref_name}.py").exists(), name
+        tests = spec.PACKAGE / (
+            "test_portbench_reference.py" if ref_name == "donn"
+            else f"test_portbench_reference_{ref_name}.py")
+        assert tests.exists() and "\ndef test_" in tests.read_text(), name

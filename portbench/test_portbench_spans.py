@@ -11,6 +11,7 @@ from repro_torch.tracing import Span
 
 BENCH = spec.load_benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
+SPAN_METRICS = port_spans.per_layer()
 
 
 def _span(name, t0, t1, id, parent=None, thread=1, wait=False, **attrs):
@@ -53,7 +54,7 @@ def test_launches_count_inside_spans_of_each_name():
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 
 
-@pytest.mark.parametrize("m", port_spans.PER_LAYER, ids=lambda m: m["name"])
+@pytest.mark.parametrize("m", SPAN_METRICS, ids=lambda m: m["name"])
 def test_span_metrics_are_ready_for_the_benchmark(m):
     e2e = {e["name"]: e for e in BENCH["end_to_end"]}
     layers = {p["layer"] for p in BENCH["per_layer"]}
@@ -97,18 +98,8 @@ def test_span_readers_on_synthetic_spans():
     train = [_span("train.chunk", 0.0, 800_000.0, 1, steps=8),
              _span("train.upload", 0.0, 16_000.0, 2, 1)]
     assert _reading("train.upload_wait_ms", train) == 2.0
-    for m in port_spans.PER_LAYER:  # a trace without the port's spans
+    for m in port_spans.METRICS:  # a trace without the port's spans
         assert _reading(m["name"], []) is None
-
-
-# what one window reads at the smoke twins, whatever its length: a sweep's
-# calls that hit its set's inputs need a second call of the set
-READ_BY_ANY_WINDOW = {
-    "xl500-serve-c64": {"serve.queue_wait_ms", "serve.serial_host_ms"},
-    "mnist5l-dse-sweep": {"dse.inputs_build_ms"},
-    "mnist5l-dse-shortlist": {"dse.prep_ms"},
-    "xl500-train-b128": {"train.upload_wait_ms"},
-}
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -117,9 +108,13 @@ def test_traced_smoke_run_reports_its_span_metrics(name):
     port_spans.run(name, 2_147_483_647, 0.3, ["on", "off"], "cpu",
                    rows.append, smoke=True)
     on, off, device = rows
-    listed = {m["name"] for m in port_spans.PER_LAYER
+    listed = {m["name"] for m in SPAN_METRICS
               if name in m["workloads"] and m["source"] == "program_span"}
-    want = READ_BY_ANY_WINDOW[name]
+    # what one window reads at the smoke twins, whatever its length, as
+    # the cell's driver declares it for its traffic
+    declared = port_spans.declared(spec.resolve(name, smoke=True))
+    assert set(declared) <= {m["name"] for m in port_spans.METRICS}
+    want = {m for m, every in declared.items() if every}
     assert want <= listed and want <= set(on["metrics"])
     assert all(on["metrics"][m] > 0 for m in want)
     # spans reach the trace only once placed on its clock by the anchors

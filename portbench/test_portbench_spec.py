@@ -5,7 +5,7 @@ import re
 
 import pytest
 
-from portbench.harness import spec
+from portbench.harness import program, spec
 
 BENCH = spec.load_benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
@@ -70,20 +70,123 @@ def test_cell_resolves(name):
         assert callable(spec.metric_reader(m["name"]).read)
 
 
+# what a language model's file may cut: depth, the chip's share of the
+# experts, a slice of the vocabulary; a DONN's file cuts nothing
+LM_CUTS = {"n_layers", "n_experts", "vocab"}
+
+
+def check_config_file(entry: dict, root=spec.ROOT) -> None:
+    """Fail unless the file of ``configs`` entry ``entry`` holds the port's
+    registered configuration (its DONN registry, else
+    ``repro_torch.models.config.get_config``) with the file's
+    ``overrides``, and ``reduced`` lists exactly the numeric fields that
+    the overrides lower, each one its family may cut.  ``reduced`` may
+    also name keys of the file that are no field (a catalog model's own
+    name for a cut size).  ``BENCHMARK.json``'s ``reduced`` is the
+    file's."""
+    import dataclasses
+
+    from repro_torch.configs import donn
+    from repro_torch.models.config import get_config
+
+    raw = json.loads((root / entry["file"]).read_text())
+    fields = {k: v for k, v in raw.items() if k not in spec.CONFIG_META}
+    if raw["registered"] in donn.CONFIGS:
+        registered = donn.get_config(raw["registered"])
+        overrides, cuts = raw["overrides"], set()
+        built = program.donn_config(fields)
+    else:
+        registered = get_config(raw["registered"])
+        overrides, cuts = program.lm_fields(raw["overrides"]), LM_CUTS
+        built = program.lm_config(fields)
+    assert built == dataclasses.replace(registered, **overrides)
+    lowered = {k for k, v in overrides.items()
+               if isinstance(v, (int, float)) and not isinstance(v, bool)
+               and v < getattr(registered, k)}
+    assert lowered <= cuts, f"{sorted(lowered - cuts)} may not be cut"
+    names = {f.name for f in dataclasses.fields(registered)}
+    listed = set(raw["reduced"])
+    assert listed & names == lowered, (sorted(listed), sorted(lowered))
+    assert listed - names <= set(fields), sorted(listed - names - set(fields))
+    assert len(listed) == len(raw["reduced"])
+    assert entry["reduced"] == raw["reduced"]
+    assert entry["file"].startswith("portbench/")
+
+
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_file_is_the_registered_config(entry):
     """The file holds the registered configuration with its overrides,
-    and nothing of it is cut."""
+    and cuts nothing but what its family may cut (a DONN's nothing)."""
+    check_config_file(entry)
+    raw = json.loads((spec.ROOT / entry["file"]).read_text())
+    assert (spec.PACKAGE / "reference" / f"{raw['reference']}.py").exists()
+
+
+def _made_up(tmp_path, registered, overrides, reduced, extra=None):
+    """A configuration file under ``tmp_path`` and its ``configs`` entry."""
     import dataclasses
 
-    from repro_torch.configs.donn import get_config
-    from repro_torch.core.config import DONNConfig
+    from repro_torch.configs import donn
+    from repro_torch.models.config import get_config
 
-    raw = json.loads((spec.ROOT / entry["file"]).read_text())
-    fields = {k: v for k, v in raw.items() if k not in spec.CONFIG_META}
-    want = dataclasses.replace(get_config(raw["registered"]),
-                               **raw["overrides"])
-    assert DONNConfig(**fields) == want
-    assert entry["reduced"] == raw["reduced"] == []
-    assert entry["file"].startswith("portbench/")
-    assert (spec.PACKAGE / "reference" / f"{raw['reference']}.py").exists()
+    if registered in donn.CONFIGS:
+        cfg = dataclasses.replace(donn.get_config(registered), **overrides)
+    else:
+        cfg = dataclasses.replace(get_config(registered),
+                                  **program.lm_fields(overrides))
+    fields = {k: (str(v).removeprefix("torch.") if k == "dtype" else v)
+              for k, v in dataclasses.asdict(cfg).items()}
+    raw = {"registered": registered, "overrides": overrides,
+           "reduced": reduced, "reference": "stub", **fields, **(extra or {})}
+    path = tmp_path / "portbench" / "configs" / f"{registered}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(raw))
+    return {"name": registered, "file": f"portbench/configs/{path.name}",
+            "reduced": reduced}
+
+
+MADE_UP = {  # case -> (registered, overrides, reduced, extra keys, passes)
+    "lm-cut-depth": ("mixtral-8x7b", {"n_layers": 8}, ["n_layers"], None,
+                     True),
+    "lm-cut-unlisted": ("mixtral-8x7b", {"n_layers": 8}, [], None, False),
+    "lm-cut-width": ("mixtral-8x7b", {"n_layers": 8, "d_model": 2048},
+                     ["n_layers", "d_model"], None, False),
+    "lm-cut-listed-twice": ("mixtral-8x7b", {"n_layers": 8},
+                            ["n_layers", "n_layers"], None, False),
+    "lm-catalog-name": ("mixtral-8x7b", {"n_layers": 8, "dtype": "float32"},
+                        ["n_layers", "num_hidden_layers"],
+                        {"num_hidden_layers": 8}, True),
+    "lm-unknown-name": ("mixtral-8x7b", {"n_layers": 8},
+                        ["n_layers", "num_hidden_layers"], None, False),
+    "lm-uncut": ("falcon-mamba-7b", {}, [], None, True),
+    "donn-cut-depth": ("donn-mnist-5l", {"depth": 3}, ["depth"], None, False),
+    "donn-cut-unlisted": ("donn-xl-500", {"n": 250}, [], None, False),
+    "donn-uncut": ("donn-mnist-5l", {"use_pallas": True}, [], None, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MADE_UP))
+def test_config_file_check_on_made_up_files(tmp_path, case):
+    registered, overrides, reduced, extra, passes = MADE_UP[case]
+    entry = _made_up(tmp_path, registered, overrides, reduced, extra)
+    if passes:
+        check_config_file(entry, root=tmp_path)
+    else:
+        with pytest.raises(AssertionError):
+            check_config_file(entry, root=tmp_path)
+
+
+def test_lm_config_takes_dtype_names_and_leaves_other_keys_out():
+    import torch
+
+    from repro_torch.models.config import get_config
+
+    want = get_config("mixtral-8x7b")
+    fields = {k: getattr(want, k) for k in ("name", "family", "n_layers",
+                                            "d_model", "n_heads",
+                                            "n_kv_heads", "d_ff", "vocab")}
+    got = program.lm_config({**fields, "dtype": "float32",
+                             "hidden_size": 4096})
+    assert got.dtype is torch.float32 and got.d_model == want.d_model
+    with pytest.raises(ValueError):
+        program.lm_fields({"dtype": "float_nothing"})
